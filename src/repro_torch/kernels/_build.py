@@ -1,0 +1,88 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` at first use, ``ctypes``.
+
+Each kernel source is compiled into a shared library with a plain C
+interface (no PyTorch headers, so ``nvcc`` takes seconds, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC [-D...] -o lib<name>.so <source>.cu
+
+Libraries land in ``build/repro_torch/`` at the root of the checkout (listed
+in ``.gitignore``), under a name keyed by a hash of the sources in the
+kernel's ``csrc/`` directory and the flags, so an edited source rebuilds and
+an unchanged one loads at once.  All variants of one call are compiled by
+``nvcc`` processes started together.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+__all__ = ["NVCC_FLAGS", "build_dir", "load_libraries"]
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def build_dir() -> Path:
+    """``<checkout>/build/repro_torch`` (src/repro_torch/kernels → 3 up)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build at first use "
+                       "and need the CUDA toolkit on PATH or in /usr/local/cuda")
+
+
+def _key(source: Path, flags: Sequence[str]) -> str:
+    h = hashlib.sha256()
+    for f in sorted(source.parent.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
+    return h.hexdigest()[:16]
+
+
+def load_libraries(source: Path,
+                   variants: Dict[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
+    """Build (if needed) and load one library per variant of ``source``.
+
+    ``variants`` maps a variant name to its extra ``nvcc`` flags (e.g.
+    ``{"sum": ["-DK5_REDUCE=0"], ...}``).  Returns name → ``ctypes.CDLL``.
+    Raises ``RuntimeError`` with the compiler's output if a build fails.
+    """
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    targets = {name: out_dir / f"lib{source.stem}_{name}_{_key(source, flags)}.so"
+               for name, flags in variants.items()}
+    procs = {}
+    for name, flags in variants.items():
+        lib = targets[name]
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, cmd)
+    failures = []
+    for name, (proc, tmp, cmd) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, targets[name])  # atomic: a reader never sees half
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return {name: ctypes.CDLL(str(lib)) for name, lib in targets.items()}
