@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py [--log2-vertices 21] [--reps 20]
+    python3 chip_smoke.py
 
 Run from the root of a checkout.  It needs one CUDA card and the CUDA
 toolkit (``nvcc``): the K5 kernel is built from ``src/repro_torch`` at first
@@ -10,10 +10,10 @@ use.  It imports nothing of JAX and nothing of the JAX package ``repro``.
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit from ``nvidia-smi``;
   2. build: compile (or load) the K5 libraries, with the seconds it took;
-  3. kernel vs plain version on the card, over every static variant, on the
-     tiles of the ``kr`` registry graph at ``small`` scale (uint16 ids) and
-     of the main-path graph (int32 ids): min/max bitwise, sums within
-     2e-6 · (1 + max|y|);
+  3. kernel vs plain version on the card, over every static variant, on all
+     rows of every tile class of the ``kr`` registry graph at ``small`` scale
+     (uint16 ids) and of the main-path graph (int32 ids): min/max bitwise,
+     sums within 2e-6 · (1 + max|y|);
   4. the main path: a ``kr``-signature RMAT graph (a=.57, b=.19, c=.19,
      average degree 20) at 2^21 vertices, reordered with DBG on out-degree,
      then PageRank (original and DBG orderings), PageRank-delta, SSSP, BC and
@@ -22,12 +22,12 @@ Phases (any failure raises, and the script exits non-zero):
   5. times at the main path's PageRank pull: the kernel, its plain version,
      one library call (cuSPARSE SpMV through ``torch.sparse``) and the bound.
 
-It prints the ``kernels`` JSON line and, as its last line,
-``{"ok": true, "device": {...}}``.
+It prints the ``kernels`` JSON line (the kernel's time is ``ms``, its worst
+error against the plain version ``max_abs_err``, the TPU kernel it replaces
+``replaces``) and, as its last line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -38,6 +38,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+LOG2_VERTICES = 21         # main-path graph: 2,097,152 vertices
+REPS = 20                  # timed calls per measurement (median)
+PLAIN_CHUNK_LANES = 1 << 24  # rows per plain-version call, in lanes
 
 
 def log(msg: str) -> None:
@@ -73,22 +76,31 @@ def _assert_close(got, want, reduce, what):
     return err
 
 
-def _row_subset(t, lanes_cap):
-    """The first rows of a tile class, at most ``lanes_cap`` lanes, so the
-    plain version's (R, W, K) intermediates stay small on the hub class."""
-    r_pad, w_pad = t.idx.shape
-    r = max(8, min(r_pad, (lanes_cap // w_pad) // 8 * 8))
-    return t.idx[:r].contiguous(), t.deg[:r].contiguous()
+def _plain(x, idx, deg, **kw):
+    """The plain version over row chunks of at most ``PLAIN_CHUNK_LANES``
+    lanes, so its (R, W, K) intermediates stay small on the hub class."""
+    import torch
+
+    from repro_torch.kernels.edge_map import ell_edge_map_ref
+
+    step = max(1, PLAIN_CHUNK_LANES // idx.shape[1])
+    out = []
+    for a in range(0, idx.shape[0], step):
+        rows = {k: (v[a:a + step] if k in ("w", "alive", "init_rows")
+                    and v is not None else v) for k, v in kw.items()}
+        out.append(ell_edge_map_ref(x, idx[a:a + step], deg[a:a + step],
+                                    **rows))
+    return torch.cat(out)
 
 
-def variant_grid(tiles, num_vertices, device, seed, lanes_cap=None):
-    """K5 against its plain version over every static variant; returns
-    (variants checked, max |err| of the sums)."""
+def variant_grid(tiles, num_vertices, device, seed):
+    """K5 against its plain version over every static variant, on all rows of
+    every tile class; returns (variants checked, max |err| of the sums)."""
     import itertools
 
     import torch
 
-    from repro_torch.kernels.edge_map import ell_edge_map, ell_edge_map_ref
+    from repro_torch.kernels.edge_map import ell_edge_map
 
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -98,8 +110,7 @@ def variant_grid(tiles, num_vertices, device, seed, lanes_cap=None):
     v = num_vertices
     planes = []
     for t in tiles:
-        idx, deg = (t.idx, t.deg) if lanes_cap is None else _row_subset(
-            t, lanes_cap)
+        idx, deg = t.idx, t.deg
         r, w = idx.shape
         planes.append(dict(idx=idx, deg=deg, w=rand(r, w),
                            alive=(rand(r, w) < 0.8).to(torch.int8),
@@ -123,9 +134,9 @@ def variant_grid(tiles, num_vertices, device, seed, lanes_cap=None):
                       init_rows=p[f"init{k}"] if init else None,
                       neutral=neutral, row_tile=r, width_tile=w)
             got = ell_edge_map(xs[k], p["idx"], p["deg"], **kw)
-            want = ell_edge_map_ref(xs[k], p["idx"], p["deg"],
-                                    **{a: b for a, b in kw.items()
-                                       if a not in ("row_tile", "width_tile")})
+            want = _plain(xs[k], p["idx"], p["deg"],
+                          **{a: b for a, b in kw.items()
+                             if a not in ("row_tile", "width_tile")})
             max_err = max(max_err, _assert_close(
                 got, want, reduce,
                 f"{reduce}/{weight}/{frontier}/alive={alive}/init={init}/K={k}"
@@ -138,14 +149,14 @@ def variant_grid(tiles, num_vertices, device, seed, lanes_cap=None):
         kw = dict(reduce="max", identity=-128.0)
         got = ell_edge_map(reach, p["idx"], p["deg"], row_tile=r, width_tile=w,
                            **kw)
-        _assert_close(got, ell_edge_map_ref(reach, p["idx"], p["deg"], **kw),
+        _assert_close(got, _plain(reach, p["idx"], p["deg"], **kw),
                       "max", "radii identity")
     _sync()
     return n + 1, max_err
 
 
 # ---------------------------------------------------------------- phase 4
-def build_graphs(log2_vertices, seed=0):
+def build_graphs(log2_vertices=LOG2_VERTICES, seed=0):
     """The kr-signature RMAT graph at 2^log2 vertices (host, numpy), its DBG
     reordering on out-degree, and a weighted copy of that for SSSP."""
     from repro_torch.core.reorder import reorder_graph
@@ -158,11 +169,13 @@ def build_graphs(log2_vertices, seed=0):
                         **spec.extra)
     t1 = time.perf_counter()
     g_dbg, res = reorder_graph(g, "dbg", degree_source="out")
-    gw_dbg = generators.with_weights(g_dbg, seed=seed + 1)
     t2 = time.perf_counter()
+    gw_dbg = generators.with_weights(g_dbg, seed=seed + 1)
+    t3 = time.perf_counter()
     log(f"graph: kr-signature RMAT V={g.num_vertices} E={g.num_edges} "
-        f"(generate {t1 - t0:.1f} s; DBG reorder {res.seconds:.2f} s, "
-        f"{res.num_groups} groups; + weights {t2 - t1:.1f} s)")
+        f"(generate {t1 - t0:.1f} s; DBG reorder {res.seconds:.2f} s "
+        f"(mapping + CSR rebuild), {res.num_groups} groups; weighted copy "
+        f"{t3 - t2:.1f} s)")
     return g, g_dbg, gw_dbg
 
 
@@ -235,7 +248,17 @@ def _compare_app(name, eo, fo):
         (r1, i1), (r2, i2) = eo, fo
         if not (torch.isfinite(r1).all() and r1.shape == r2.shape):
             raise AssertionError(f"{name}: ranks not finite")
-        close(r1, r2, "ranks", 0.0, 1e-7)
+        # Ranks in units of the uniform rank 1/V: the reference's atol 1e-7
+        # at a 2,000-vertex graph is 2e-4 of that unit, and rtol 1e-4 covers
+        # the summation-order noise of hub rows with ~10^5 in-edges.  A lane
+        # missing from a row of average degree moves its rank by ~4%.
+        v = r1.numel()
+        a, b = r1.double() * v, r2.double() * v
+        used = float(((a - b).abs() / (2e-4 + 1e-4 * b.abs())).max())
+        log(f"  {name}: worst rank gap {used:.3g} of the band")
+        if not used <= 1.0:
+            raise AssertionError(f"{name}: ranks differ by {used:.3g}x the "
+                                 "band (rtol 1e-4, atol 2e-4 / V)")
         if abs(i1 - i2) > 1:
             raise AssertionError(f"{name}: iterations {i1} vs {i2}")
         return (i1, i2)
@@ -354,14 +377,7 @@ def time_pull(flat, ell, reps):
 
 
 # ---------------------------------------------------------------- main
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--log2-vertices", type=int, default=21,
-                    help="main-path graph size (default 21: 2,097,152)")
-    ap.add_argument("--reps", type=int, default=20,
-                    help="timed calls per measurement (median)")
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -394,20 +410,21 @@ def main(argv=None) -> int:
     small = datasets.load("kr", "small")
     spec = dbg_spec(max(1.0, float(small.in_csr.degrees().mean())))
     small_tiles = ell_tiles(small.in_csr, spec.boundaries, device=dev)
-    g, g_dbg, gw_dbg = build_graphs(args.log2_vertices)
+    g, g_dbg, gw_dbg = build_graphs()
     in_deg = g_dbg.in_csr.degrees()
     big_tiles = ell_tiles(g_dbg.in_csr, dbg_spec(float(in_deg.mean())).boundaries,
                           device=dev)
     t0 = time.perf_counter()
     n1, e1 = variant_grid(small_tiles, small.num_vertices, dev, seed=0)
-    n2, e2 = variant_grid(big_tiles, g_dbg.num_vertices, dev, seed=1,
-                          lanes_cap=1 << 22)
-    del big_tiles
+    n2, e2 = variant_grid(big_tiles, g_dbg.num_vertices, dev, seed=1)
     log(f"kernel vs plain: {n1} variants on kr/small "
         f"({[tuple(t.idx.shape) for t in small_tiles]}, "
         f"{small_tiles[0].idx.dtype}) and {n2} on the main-path graph's "
-        f"classes (int32 ids), all agree; max |err| of sums {max(e1, e2):.3g} "
+        f"classes ({[tuple(t.idx.shape) for t in big_tiles]}, int32 ids), "
+        f"all rows, all agree; max |err| of sums {max(e1, e2):.3g} "
         f"({time.perf_counter() - t0:.1f} s)")
+    del big_tiles
+    torch.cuda.empty_cache()
 
     # 4. the main path; the launch count is read from zero
     ell_edge_map.launches = 0
@@ -419,12 +436,13 @@ def main(argv=None) -> int:
 
     # 5. times
     flat, ell = backends["dbg"]
-    t = time_pull(flat, ell, args.reps)
+    t = time_pull(flat, ell, REPS)
     for shape, dtype, edges, ms in t["per_class"]:
         log(f"  class {shape} {dtype}: {edges} edges, kernel {ms:.4f} ms")
     log(f"timed pull: kernel {t['ms']:.4f} ms ({t['launches_per_call']} "
         f"launches), full fused_edge_map {t['fused_ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, cuSPARSE {t['library_ms']:.4f} ms, bound "
+        f"{t['plain_ms']:.4f} ms, cuSPARSE {t['library_ms']:.4f} ms (max |err| "
+        f"vs flat {t['library_max_abs_err']:.3g}), bound "
         f"{t['bound_ms']:.4f} ms ({t['bound_bytes']} B), padded-plane bound "
         f"{t['padded_bound_ms']:.4f} ms ({t['padded_bytes']} B)")
     log(json.dumps({"apps": records, "edges": g.num_edges,
@@ -433,14 +451,10 @@ def main(argv=None) -> int:
         "name": "ell_edge_map", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_map/csrc/edge_map.cu",
         "replaces": "src/repro/kernels/edge_map/edge_map.py:159",
-        "tpu": "kernels/edge_map/edge_map.py:ell_edge_map_pallas",
         "launches": main_launches, "launches_per_call": t["launches_per_call"],
-        "max_abs_err": max(e1, e2, t["max_abs_err"]),
-        "max_err": max(e1, e2, t["max_abs_err"]),
-        "ms": t["ms"], "kernel_ms": t["ms"], "fused_ms": t["fused_ms"],
+        "max_abs_err": max(e1, e2, t["max_abs_err"]), "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "padded_bound_ms": t["padded_bound_ms"],
-        "library_ms": t["library_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel]}))
