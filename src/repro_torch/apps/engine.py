@@ -10,7 +10,7 @@ Port of ``repro.apps.engine``.  The engine mirrors Ligra's two primitives:
 Frontiers are dense boolean masks; ``frontier_density`` is Ligra's pull/push
 switch statistic and drives the direction-optimizing SSSP/BC loops.
 
-Two backends implement the primitives (``pull`` / ``push`` methods):
+Three backends implement the primitives (``pull`` / ``push`` methods):
 
   * ``FlatBackend`` — the edge-parallel oracle: gather ``prop[src]``, add the
     weight, mask the frontier, then a sorted-segment reduction over the
@@ -21,6 +21,10 @@ Two backends implement the primitives (``pull`` / ``push`` methods):
     launch per width class.  Push is the transposed pull with an
     ``init``-seeded accumulator over the same in-direction tiles.  min/max
     are bit-identical to flat; sums differ only in fp association (~1e-6).
+  * ``PackedBackend`` (``repro_torch.pack``) — the same K5 kernel straight
+    over the hot/cold packed storage: the hot slot tables as stored, the
+    cold varint tail decoded once into ELL tiles.  BC's backward sweep goes
+    through its own ``out_edge_sum``.
 
 Apps are written against the dispatching ``edge_map_pull``/``edge_map_push``
 and run unchanged on either backend; raw ``GraphArrays`` take the flat path.
@@ -313,12 +317,26 @@ def _build_ell(g: csr.Graph, *, device: torch.device, row_tile: int = 64,
                       width_tile=width_tile)
 
 
+def _build_packed(g: csr.Graph, *, device: torch.device, row_tile: int = 64,
+                  width_tile: int = 128, slot_align: int = 16,
+                  hot_groups: int = 0):
+    from ..pack.engine import packed_backend
+    from ..pack.layout import pack_graph
+
+    pg = pack_graph(g, slot_align=slot_align,
+                    hot_groups=hot_groups if hot_groups > 0 else None,
+                    rows_per_block=row_tile)
+    return packed_backend(pg, row_tile=row_tile, width_tile=width_tile,
+                          device=device)
+
+
 #: name -> builder(g, device=..., **knobs).  Extend this table rather than
 #: matching backend names elsewhere; ``BACKEND_KNOBS`` declares the knobs
 #: each builder consumes — keep the two tables in sync.
 BACKENDS: Dict[str, Callable] = {
     "flat": _build_flat,      # edge-parallel oracle (gather/segment)
     "ell": _build_ell,        # fused K5 kernel over DBG-ELL tiles
+    "packed": _build_packed,  # fused K5 kernel straight over pack.PackedGraph
     "arrays": _build_arrays,  # raw GraphArrays
 }
 
@@ -327,6 +345,8 @@ BACKEND_KNOBS: Dict[str, frozenset] = {
     "flat": frozenset(),
     "arrays": frozenset(),
     "ell": frozenset({"row_tile", "width_tile"}),
+    "packed": frozenset({"row_tile", "width_tile", "slot_align",
+                         "hot_groups"}),
 }
 _ALL_KNOBS = frozenset().union(*BACKEND_KNOBS.values())
 
@@ -375,8 +395,10 @@ def to_arrays(
     ``device=None`` is the CUDA card, and raises without one.  ``"flat"``
     (default) keeps the edge-parallel oracle path; ``"ell"`` packs the
     in-direction into per-DBG-group ELL tiles (``row_tile``/``width_tile``)
-    and routes every edge map through the fused K5 kernel; ``"arrays"``
-    returns the raw ``GraphArrays``.
+    and routes every edge map through the fused K5 kernel; ``"packed"``
+    packs ``g`` into hot/cold storage (``slot_align``, ``hot_groups``; 0 =
+    the layout's default) and runs K5 over it; ``"arrays"`` returns the raw
+    ``GraphArrays``.
 
     Knobs are validated against ``BACKEND_KNOBS``: unknown names raise;
     knobs the chosen backend does not consume warn and are dropped, or
@@ -443,10 +465,15 @@ def out_edge_sum(ga, edge_val) -> torch.Tensor:
     """src <- SUM over out-edges of ``edge_val(src_ids, dst_ids)``.
 
     BC's backward dependency gather: a pull in the OUT direction whose edge
-    value depends on both endpoints; a sorted-segment sum on every backend.
+    value depends on both endpoints.  Backends with segmented (non-edge-
+    parallel) storage provide their own ``out_edge_sum``; everything backed
+    by flat arrays takes the sorted-segment sum here.
     """
     if _EDGE_MAP_HOOK is not None:
         _EDGE_MAP_HOOK.on_pass(ga, "out_sum", None, {})
+    fn = getattr(ga, "out_edge_sum", None)
+    if fn is not None:
+        return fn(edge_val)
     return _segment(edge_val(ga.out_src, ga.out_dst), ga.out_ptr, "sum")
 
 

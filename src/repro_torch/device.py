@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -23,3 +24,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "repro_torch runs on a CUDA device by default and this process has "
             "none; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array on ``device``, cast to the numpy ``dtype`` first when one
+    is given, else at its stored dtype.  uint32 crosses as its int32 bit
+    pattern and is viewed back, so only copies and views ever touch torch's
+    thinly supported uint32."""
+    a = np.ascontiguousarray(a if dtype is None else a.astype(dtype, copy=False))
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32)).to(device).view(torch.uint32)
+    return torch.from_numpy(a).to(device)

@@ -8,9 +8,13 @@ interface (no PyTorch headers, so ``nvcc`` takes seconds, not minutes):
 
 Libraries land in ``build/repro_torch/`` at the root of the checkout (listed
 in ``.gitignore``), under a name keyed by a hash of the sources in the
-kernel's ``csrc/`` directory and the flags, so an edited source rebuilds and
-an unchanged one loads at once.  All variants of one call are compiled by
-``nvcc`` processes started together.  Nothing here runs at import time.
+kernel's ``csrc/`` directory, the headers the kernels share
+(``kernels/csrc/``) and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  A kernel includes nothing of the repo from
+outside those two directories, so the key covers everything its library
+includes.  All variants
+of all sources of one call are compiled by ``nvcc`` processes started
+together.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -20,12 +24,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load_libraries"]
+__all__ = ["NVCC_FLAGS", "SHARED_CSRC", "build_dir", "load_libraries",
+           "load_many"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: Headers more than one kernel includes (``#include "../../csrc/..."``).
+SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
 
 
 def build_dir() -> Path:
@@ -46,9 +54,10 @@ def _nvcc() -> str:
 
 def _key(source: Path, flags: Sequence[str]) -> str:
     h = hashlib.sha256()
-    for f in sorted(source.parent.glob("*.cu*")):
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
+    for d in (source.parent, SHARED_CSRC):
+        for f in sorted(d.glob("*.cu*")):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     return h.hexdigest()[:16]
 
@@ -61,28 +70,38 @@ def load_libraries(source: Path,
     ``{"sum": ["-DK5_REDUCE=0"], ...}``).  Returns name → ``ctypes.CDLL``.
     Raises ``RuntimeError`` with the compiler's output if a build fails.
     """
+    return load_many([(source, variants)])[0]
+
+
+def load_many(jobs: Sequence[Tuple[Path, Dict[str, Sequence[str]]]]
+              ) -> List[Dict[str, ctypes.CDLL]]:
+    """:func:`load_libraries` for several sources, every ``nvcc`` started
+    before the first is waited for.  Returns one name → CDLL map per job."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    targets = {name: out_dir / f"lib{source.stem}_{name}_{_key(source, flags)}.so"
-               for name, flags in variants.items()}
-    procs = {}
-    for name, flags in variants.items():
-        lib = targets[name]
-        if lib.exists():
-            continue
+    targets = [{name: out_dir / f"lib{src.stem}_{name}_{_key(src, flags)}.so"
+                for name, flags in variants.items()}
+               for src, variants in jobs]
+    missing = [(src, flags, libs[name])
+               for (src, variants), libs in zip(jobs, targets)
+               for name, flags in variants.items() if not libs[name].exists()]
+    nvcc = _nvcc() if missing else None
+    procs = []
+    for src, flags, lib in missing:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, cmd)
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, lib, cmd))
     failures = []
-    for name, (proc, tmp, cmd) in procs.items():
+    for proc, tmp, lib, cmd in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failures.append(f"{' '.join(cmd)}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, targets[name])  # atomic: a reader never sees half
+            os.replace(tmp, lib)  # atomic: a reader never sees half
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    return {name: ctypes.CDLL(str(lib)) for name, lib in targets.items()}
+    return [{name: ctypes.CDLL(str(lib)) for name, lib in libs.items()}
+            for libs in targets]

@@ -31,6 +31,8 @@ from typing import Dict, Optional
 
 import torch
 
+from .._wrap import require
+
 __all__ = ["REDUCE_IDENTITY", "reduce_identity", "edge_map_tile_bytes",
            "ell_edge_map", "load_kernels"]
 
@@ -82,33 +84,24 @@ def edge_map_tile_bytes(r_pad: int, w_pad: int, num_vertices: int, *,
     return b
 
 
+def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
+    for red, lib in libs.items():
+        fn = getattr(lib, f"k5_edge_map_{red}")
+        fn.argtypes = [p, p, i32, p, p, i32, p, i32, p, p, p,
+                       i64, i64, i64, i32, i32, f32, f32, p]
+        fn.restype = ctypes.c_int
+        _KERNELS[red] = fn
+
+
 def load_kernels() -> Dict[str, ctypes._CFuncPtr]:
     """Build (first use) and bind the three K5 libraries; reduce → C entry."""
     if not _KERNELS:
         from .._build import load_libraries
 
-        libs = load_libraries(_SOURCE, _VARIANTS)
-        p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                            ctypes.c_float)
-        for red, lib in libs.items():
-            fn = getattr(lib, f"k5_edge_map_{red}")
-            fn.argtypes = [p, p, i32, p, p, i32, p, i32, p, p, p,
-                           i64, i64, i64, i32, i32, f32, f32, p]
-            fn.restype = ctypes.c_int
-            _KERNELS[red] = fn
+        _bind(load_libraries(_SOURCE, _VARIANTS))
     return _KERNELS
-
-
-def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def ell_edge_map(
@@ -166,21 +159,21 @@ def ell_edge_map(
     row_shape = (r, k) if x.dim() == 2 else (r,)
     if idx.dtype not in (torch.uint16, torch.int32):
         raise TypeError(f"idx must be uint16 or int32, got {idx.dtype}")
-    _require(idx, "idx", idx.dtype, (r, width), dev)
-    _require(deg, "deg", torch.int32, (r,), dev)
+    require(idx, "idx", idx.dtype, (r, width), dev)
+    require(deg, "deg", torch.int32, (r,), dev)
     if w is not None:
-        _require(w, "w", torch.float32, (r, width), dev)
+        require(w, "w", torch.float32, (r, width), dev)
     fmode = 0
     if frontier is not None:
         fmode = 2 if frontier.dim() == 2 else 1
         fshape = (v, k) if fmode == 2 else (v,)
         if fmode == 2 and x.dim() != 2:
             raise ValueError("a (V, K) frontier needs a (V, K) x")
-        _require(frontier, "frontier", torch.int8, fshape, dev)
+        require(frontier, "frontier", torch.int8, fshape, dev)
     if alive is not None:
-        _require(alive, "alive", torch.int8, (r, width), dev)
+        require(alive, "alive", torch.int8, (r, width), dev)
     if init_rows is not None:
-        _require(init_rows, "init_rows", torch.float32, row_shape, dev)
+        require(init_rows, "init_rows", torch.float32, row_shape, dev)
     if v == 0:
         raise ValueError("x is empty")
 

@@ -2,6 +2,7 @@
 JAX nor anything of ``repro``, and the entry points never move to the CPU
 without being asked."""
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -105,3 +106,48 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load_libraries(src, {"sum": ["-DK5_REDUCE=0"]})
     assert not any(tmp_path.glob("*.so"))
+
+
+def test_kernel_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    """K4 and K1 include ``kernels/csrc/row_spmv.cuh``: an edit there must
+    change both libraries' names, so no stale library is loaded."""
+    from repro_torch.kernels import _build
+
+    # by path: each package re-exports a function under its module's name
+    mods = [importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in ("pack_spmv.pack_spmv", "csr_spmv.csr_spmv")]
+    header = _build.SHARED_CSRC / "row_spmv.cuh"
+    for src in (m._SOURCE for m in mods):
+        assert '#include "../../csrc/row_spmv.cuh"' in src.read_text()
+        assert (src.parent / "../../csrc/row_spmv.cuh").resolve() == header
+    copy = tmp_path / header.name
+    copy.write_text(header.read_text())
+    monkeypatch.setattr(_build, "SHARED_CSRC", tmp_path)
+    before = [_build._key(m._SOURCE, []) for m in mods]
+    copy.write_text(header.read_text() + "// edited\n")
+    after = [_build._key(m._SOURCE, []) for m in mods]
+    assert all(a != b for a, b in zip(before, after))
+
+
+def test_load_all_builds_every_kernel_source_in_one_call(monkeypatch):
+    """``load_all`` hands every kernel's source to one ``load_many`` call (so
+    all ``nvcc``s start together) and binds each library to its wrapper."""
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+
+    seen = []
+
+    def fake_load_many(jobs):
+        seen.extend(jobs)
+        return [{name: None for name in variants} for _, variants in jobs]
+
+    bound = []
+    monkeypatch.setattr(_build, "load_many", fake_load_many)
+    for name in kernels.KERNEL_MODULES:
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        monkeypatch.setattr(mod, "_bind", lambda libs, n=name: bound.append(n))
+    kernels.load_all()
+    assert [src.name for src, _ in seen] == [
+        "edge_map.cu", "pack_spmv.cu", "csr_spmv.cu", "hist_bin.cu"]
+    assert all(src.exists() for src, _ in seen)
+    assert bound == list(kernels.KERNEL_MODULES)
