@@ -9,8 +9,8 @@ use.  It imports nothing of JAX and nothing of the JAX package ``repro``.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit from ``nvidia-smi``;
-  2. build: compile (or load) the libraries of all four kernels — K5, K4,
-     K1 and hist_bin — with every ``nvcc`` started together;
+  2. build: compile (or load) the libraries of all five kernels — K5, K4,
+     K1, hist_bin and K2 — with every ``nvcc`` started together;
   3. K5 vs its plain version on the card, over every static variant, on all
      rows of every tile class of the ``kr`` registry graph at ``small`` scale
      (uint16 ids) and of the main-path graph (int32 ids): min/max bitwise,
@@ -33,7 +33,24 @@ Phases (any failure raises, and the script exits non-zero):
      unweighted and weighted; K1 on every DBG group; hist_bin on the
      out-degrees, also with bounds that do not end in 0;
   8. times of K4, K1 and hist_bin at their packed-path calls, beside their
-     plain versions, one library call each and their bounds.
+     plain versions, one library call each and their bounds;
+  9. (the graph state freed) K2 vs its plain version on the card, bitwise:
+     ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
+     widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
+     Zipf ids, and at a T that is not a multiple of 32; all-hot and
+     all-cold batches too;
+ 10. the LM serving path at reduced size, card against CPU: reduced Yi-9B
+     (GQA) and reduced OLMo-1B, same weights, ``generate`` (batch 2, prompt
+     8, 8 new): logits of every step within rtol 1e-4, atol 1e-5, tokens
+     equal;
+ 11. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
+     float32, random weights from a seeded generator on the card) serves 4
+     requests of 32 Zipf prompt tokens (DBG vocabulary) + 32 greedy tokens;
+     K2 must launch once per ``decode_step`` (64), every token lies in the
+     vocabulary, the last logits are finite, and the split gather of the
+     served ids equals its plain version bitwise;
+ 12. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
+     the plain version, ``F.embedding`` over the joined table and the bound.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms``, its worst
 error against the plain version ``max_abs_err``, the TPU kernel it replaces
@@ -55,6 +72,9 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 LOG2_VERTICES = 21         # main-path graph: 2,097,152 vertices
 REPS = 20                  # timed calls per measurement (median)
 PLAIN_CHUNK_LANES = 1 << 24  # rows per plain-version call, in lanes
+LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
+K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
 
 
 def log(msg: str) -> None:
@@ -77,6 +97,7 @@ def _wrappers():
     """Kernel name → (wrapper, source, TPU kernel it replaces)."""
     from repro_torch.kernels.csr_spmv import ell_spmv
     from repro_torch.kernels.edge_map import ell_edge_map
+    from repro_torch.kernels.gather_embed import hot_gather
     from repro_torch.kernels.hist_bin import hist_bin
     from repro_torch.kernels.pack_spmv import hot_spmv
 
@@ -90,6 +111,8 @@ def _wrappers():
                      "src/repro/kernels/csr_spmv/csr_spmv.py:47"),
         "hist_bin": (hist_bin, f"{k}/hist_bin/csrc/hist_bin.cu",
                      "src/repro/kernels/hist_bin/hist_bin.py:49"),
+        "hot_gather": (hot_gather, f"{k}/gather_embed/csrc/gather_embed.cu",
+                       "src/repro/kernels/gather_embed/gather_embed.py:36"),
     }
 
 
@@ -774,6 +797,282 @@ def time_hist_bin(pk, reps):
                 host_mapping_ms=statistics.median(host) * 1e3)
 
 
+# ---------------------------------------------------------------- phase 9
+def _zipf_tokens(vocab_size, batch, seq_len):
+    """(batch, seq_len) int32 ids of the port's ``ZipfPipeline`` (seed 0),
+    remapped through DBG over the pipeline's own token frequencies, and the
+    reordering."""
+    from repro_torch.core.vocab import reorder_vocab
+    from repro_torch.data import DataConfig, ZipfPipeline
+
+    base = ZipfPipeline(DataConfig(vocab_size=vocab_size, seq_len=seq_len,
+                                   batch_size=batch, seed=0))
+    vm = reorder_vocab(base.frequencies())
+    return ZipfPipeline(base.cfg, vocab_map=vm).batch(0)["tokens"], vm
+
+
+def _bitwise(got, want, what):
+    """Raise unless equal bit for bit; return the measured max |err| (0)."""
+    import torch
+
+    if not torch.equal(got, want):
+        bad = int((got != want).any(dim=-1).sum())
+        raise AssertionError(f"{what}: {bad} rows differ (must be bitwise)")
+    return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+
+
+def k2_grid(device):
+    """K2 against its plain version, both entry points, float32 and
+    bfloat16, at reduced and at Yi-9B widths; returns (cases, max |err|)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.gather_embed import (hot_gather, hot_gather_ref,
+                                                  split_gather_ref)
+    from repro_torch.lm.embed import EmbedDims
+
+    full = get_config(LM_ARCH)
+    zipf, _ = _zipf_tokens(full.vocab_size, 1, K2_ZIPF_T)
+    zipf = torch.from_numpy(zipf.reshape(-1)).to(device)
+    gen = torch.Generator(device=device).manual_seed(6)
+    cases, err = 0, 0.0
+    for cfg in (reduced(full), full):
+        dims = EmbedDims(cfg.vocab_size, cfg.d_model, cfg.hot_vocab_rows)
+        h, c, d = dims.hot_rows, dims.cold_rows, dims.d_model
+        table = torch.randn((h + c, d), generator=gen, device=device)
+        uniform = torch.randint(-2, h + c + 64, (K2_ZIPF_T,), generator=gen,
+                                device=device, dtype=torch.int32)
+        ids = {"zipf": zipf.clamp(max=h + c - 1), "uniform": uniform,
+               "ragged": zipf[:1000], "all_hot": zipf.clamp(0, h - 1),
+               "all_cold": zipf.clamp(h, h + c - 1)}
+        for dtype in (torch.float32, torch.bfloat16):
+            t = table.to(dtype)
+            hot, cold = t[:h], t[h:]
+            for what, b in ids.items():
+                label = f"K2 {what} T={b.shape[0]} H={h} C={c} D={d} {dtype}"
+                err = max(err, _bitwise(hot_gather(b, hot, cold),
+                                        split_gather_ref(hot, cold, b),
+                                        label + " split"),
+                          _bitwise(hot_gather(b, hot), hot_gather_ref(b, hot),
+                                   label + " hot-only"))
+                cases += 2
+            del t, hot, cold
+        del table
+    _sync()
+    return cases, err
+
+
+# ---------------------------------------------------------------- phase 10
+def lm_parity(device):
+    """Reduced Yi-9B (GQA) and OLMo-1B, the same weights on the CPU and the
+    card: greedy tokens equal, every step's logits within rtol 1e-4, atol
+    1e-5.  Returns the worst share of that band used."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.lm.model import init_params
+    from repro_torch.lm.serve import generate
+
+    worst = 0.0
+    for arch, kw in (("yi_9b", dict(n_kv_heads=2)), ("olmo_1b", {})):
+        cfg = reduced(get_config(arch), **kw)
+        model = init_params(cfg, seed=0, device="cpu")
+        prompt = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(1))
+        want, want_lg = generate(model, prompt, max_new=8, return_logits=True)
+        got, got_lg = generate(model.to(device), prompt.to(device), max_new=8,
+                               return_logits=True)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{arch}: card and CPU tokens differ")
+        for step, (a, b) in enumerate(zip(got_lg, want_lg)):
+            used = float(((a.cpu() - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
+            if not used <= 1.0:
+                raise AssertionError(f"{arch} step {step}: logits off by "
+                                     f"{used:.3g}x the band (rtol 1e-4, "
+                                     "atol 1e-5)")
+            worst = max(worst, used)
+        log(f"  {cfg.arch_id} reduced ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, norm "
+            f"{cfg.norm}): {len(got_lg)} steps agree, tokens equal")
+    return worst
+
+
+# ---------------------------------------------------------------- phase 11
+def lm_serve(device):
+    """Yi-9B at full width serves LM_BATCH requests through ``generate``.
+    Returns the model and what phase 12 and the ``kernels`` line need."""
+    import statistics
+
+    import torch
+
+    import repro_torch.lm.model as model_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather_embed import split_gather, split_gather_ref
+    from repro_torch.lm.serve import generate
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_mod.init_params(cfg, seed=0, device=device)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens, vm = _zipf_tokens(cfg.vocab_size, LM_BATCH, LM_PROMPT)
+    prompt = torch.from_numpy(tokens).to(device)
+    hot_share = float((prompt < cfg.hot_vocab_rows).float().mean())
+    if not 0.0 < hot_share < 1.0:
+        raise AssertionError(f"prompt hot share {hot_share}: hot and cold "
+                             "ids must both occur")
+    log(f"  {cfg.arch_id}: {n_params} parameters (float32) on the card in "
+        f"{init_s:.1f} s; prompt ({LM_BATCH}, {LM_PROMPT}) from the "
+        f"DBG-remapped Zipf pipeline, {hot_share:.4f} of its ids below "
+        f"hot_vocab_rows {cfg.hot_vocab_rows} (DBG's own hot set: "
+        f"{vm.hot_rows} rows, {vm.coverage:.4f} of the mass)")
+
+    t0 = time.perf_counter()
+    generate(model, prompt, max_new=LM_NEW)  # first call: cuBLAS set-up
+    _sync()
+    first_s = time.perf_counter() - t0
+
+    events = []
+    plain_step = model_mod.decode_step
+
+    def timed_step(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = plain_step(*args)
+        b.record()
+        events.append((a, b))
+        return out
+
+    _reset_launches()
+    model_mod.decode_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        out, logits = generate(model, prompt, max_new=LM_NEW,
+                               return_logits=True)
+        _sync()
+        gen_s = time.perf_counter() - t0
+    finally:
+        model_mod.decode_step = plain_step
+    launches = _read_launches()
+    steps = len(events)
+    if launches["hot_gather"] != steps or steps != LM_PROMPT + LM_NEW:
+        raise AssertionError(f"K2 launched {launches['hot_gather']} times "
+                             f"over {steps} decode steps")
+    others = {k: n for k, n in launches.items() if k != "hot_gather" and n}
+    if others:
+        raise AssertionError(f"graph kernels launched on the LM path: {others}")
+    if not (int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size):
+        raise AssertionError("generated ids outside the vocabulary")
+    if not bool(torch.isfinite(logits[-1]).all()):
+        raise AssertionError("last logits not finite")
+    ms = [a.elapsed_time(b) for a, b in events]
+    decode_ms = statistics.median(ms[LM_PROMPT:])
+    prefill_ms = statistics.median(ms[:LM_PROMPT])
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        ids = out.reshape(-1)
+        hot, cold = model.embed["hot"], model.embed["cold"]
+        err = _bitwise(split_gather(hot, cold, ids),
+                       split_gather_ref(hot, cold, ids),
+                       "K2 on the served ids")
+    served = LM_BATCH * (LM_PROMPT + LM_NEW)
+    log(f"  generate: {gen_s:.3f} s per call (first call {first_s:.3f} s), "
+        f"{steps} decode_step calls, decode step {decode_ms:.3f} ms "
+        f"(median of {LM_NEW}; prefill steps {prefill_ms:.3f} ms), "
+        f"{LM_BATCH / decode_ms * 1e3:.1f} decode tokens/s, {served / gen_s:.1f}"
+        f" tokens/s over the call; peak device memory {peak / 2**30:.2f} GiB; "
+        f"K2 launches {launches['hot_gather']}; K2 on the served ids bitwise "
+        "equal to the plain version")
+    return model, out, dict(
+        launches=launches, gen_s=gen_s, first_s=first_s, decode_ms=decode_ms,
+        prefill_ms=prefill_ms, peak_gib=peak / 2**30, hot_share=hot_share,
+        max_abs_err=err, n_params=n_params)
+
+
+def profile_decode_step(model, tokens):
+    """One full-width decode step under ``torch.profiler``: its wall time
+    (CUDA events), the device time of every kernel, summed by name (one
+    stream, so the sum is the device's busy time), and the launch count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.lm.model as model_mod
+
+    cache = model_mod.init_cache(model.cfg, tokens.shape[0], 2,
+                                 device=tokens.device, dtype=torch.float32)
+    model_mod.decode_step(model, cache, tokens[:, :1])  # warm
+    _sync()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with warnings.catch_warnings():  # "Profiler clears events at the end..."
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            a.record()
+            model_mod.decode_step(model, cache, tokens[:, 1:2])
+            b.record()
+            _sync()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, ms = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return dict(step_ms=a.elapsed_time(b),
+                busy_ms=sum(ms for _, ms in by_name.values()),
+                launches=sum(n for n, _ in by_name.values()),
+                top=[(name[:90], n, ms) for name, (n, ms) in top[:8]])
+
+
+# ---------------------------------------------------------------- phase 12
+def time_k2(model, served, reps):
+    """K2 at the decode call (the last step's LM_BATCH ids) and at K2_ZIPF_T
+    Zipf ids, against its plain version and ``F.embedding`` over the joined
+    table (built once, outside the timed region)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.gather_embed import hot_gather, split_gather_ref
+
+    cfg = model.cfg
+    with torch.no_grad():
+        hot, cold = model.embed["hot"].detach(), model.embed["cold"].detach()
+        table = torch.cat([hot, cold])
+        zipf, _ = _zipf_tokens(cfg.vocab_size, 1, K2_ZIPF_T)
+        calls = {"decode": served[:, -1].contiguous(),
+                 "zipf": torch.from_numpy(zipf.reshape(-1)).to(hot.device)}
+        out = {}
+        for label, ids in calls.items():
+            n0 = hot_gather.launches
+            got = hot_gather(ids, hot, cold)
+            per_call = hot_gather.launches - n0
+            err = max(_bitwise(got, split_gather_ref(hot, cold, ids),
+                               f"timed K2 ({label}) vs plain"),
+                      _bitwise(got, F.embedding(ids, table),
+                               f"timed K2 ({label}) vs F.embedding"))
+            # The least traffic: each distinct row read once, each output
+            # row written once, the ids read once.
+            t, d = ids.shape[0], hot.shape[1]
+            rows = int(torch.unique(ids).numel())
+            row_bytes = d * hot.element_size()
+            bound_ms, bound_by = _bound((rows + t) * row_bytes + t * 4, 0)
+            out[label] = dict(
+                distinct_rows=rows,
+                bound_ms_t_rows=_bound(2 * t * row_bytes + t * 4, 0)[0],
+                t=t, ms=_events_ms(lambda: hot_gather(ids, hot, cold), reps),
+                plain_ms=_events_ms(lambda: split_gather_ref(hot, cold, ids),
+                                    reps),
+                library_ms=_events_ms(lambda: F.embedding(ids, table), reps),
+                bound_ms=bound_ms, bound_by=bound_by,
+                launches_per_call=per_call, max_abs_err=err)
+        del table
+    return out
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     import gc
@@ -803,7 +1102,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     load_all()
-    log(f"build: K5, K4, K1 and hist_bin libraries ready in "
+    log(f"build: K5, K4, K1, hist_bin and K2 libraries ready in "
         f"{time.perf_counter() - t0:.1f} s (every nvcc started together)")
 
     # 3. K5 vs plain, every static variant
@@ -858,7 +1157,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     pk = packed_path(g, g_dbg, gw_dbg, res, dev)
     packed = _read_launches()
-    idle = [k for k, n in packed.items() if n == 0]
+    idle = [k for k, n in packed.items() if n == 0 and k != "hot_gather"]
     if idle:
         raise AssertionError(f"packed path: {idle} never launched ({packed})")
     log(f"packed path: launches {packed}; peak device memory "
@@ -897,29 +1196,89 @@ def main() -> int:
         f"(group_reorder) {hb['host_mapping_ms']:.2f} ms "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    # 9. K2 vs plain, once the graph state has left the card
+    pk_err = pk["max_err"]
+    del pk, small_tiles, small, g, g_dbg, gw_dbg, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must not run in TF32")
+    log("float32 matmuls: full float32 (torch.backends.cuda.matmul."
+        "allow_tf32 = False)")
+    t0 = time.perf_counter()
+    n9, e9 = k2_grid(dev)
+    log(f"K2 vs plain: {n9} cases bitwise equal, max |err| {e9} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 10. the LM serving path at reduced size, card against CPU
+    t0 = time.perf_counter()
+    used = lm_parity(dev)
+    log(f"LM parity, card vs CPU: worst logit gap {used:.3g} of the band "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 11. the LM serving path at full width; counts read from zero inside
+    t0 = time.perf_counter()
+    model, served, lm = lm_serve(dev)
+    prof = profile_decode_step(model, served)
+    lm["profile"] = prof
+    log(f"LM serving path: launches {lm['launches']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"  one decode step under torch.profiler: {prof['step_ms']:.3f} ms "
+        f"(CUDA events), device busy {prof['busy_ms']:.3f} ms "
+        f"({prof['launches']} device launches)")
+    for kname, n, ms in prof["top"]:
+        log(f"    {ms:9.3f} ms  {n:4d} x  {kname}")
+
+    # 12. K2's times
+    t0 = time.perf_counter()
+    k2 = time_k2(model, served, REPS)
+    for label, m in k2.items():
+        log(f"timed K2 ({label}, T={m['t']}, D={model.cfg.d_model} float32): "
+            f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+            f"F.embedding {m['library_ms']:.4f} ms, bound {m['bound_ms']:.5f}"
+            f" ms ({m['bound_by']}; {m['distinct_rows']} distinct rows; "
+            f"{m['bound_ms_t_rows']:.5f} ms if every row were read)")
+    log(f"K2 timings done ({time.perf_counter() - t0:.1f} s)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"lm_serve": {k: v for k, v in lm.items()
+                                 if k != "launches"},
+                    "k2": k2}))
+
     timed = {
         "ell_edge_map": dict(t, max_abs_err=max(e1, e2, t["max_abs_err"])),
         "hot_spmv": dict(k4, max_abs_err=max(err4, k4["max_abs_err"],
-                                             pk["max_err"]["hot_spmv"])),
+                                             pk_err["hot_spmv"])),
         "ell_spmv": dict(k1, max_abs_err=max(err1, k1["max_abs_err"],
-                                             pk["max_err"]["ell_spmv"])),
+                                             pk_err["ell_spmv"])),
         "hist_bin": hb,
+        "hot_gather": dict(k2["decode"], max_abs_err=max(
+            e9, lm["max_abs_err"], k2["decode"]["max_abs_err"],
+            k2["zipf"]["max_abs_err"]), at_zipf_8192=k2["zipf"]),
     }
+    # K5 carries the main (ell) path, K2 the LM path, the others the packed one
+    home = {"ell_edge_map": "ell", "hot_gather": "lm_serve"}
     kernels = []
     for kname, (_, source, replaces) in _wrappers().items():
         m = timed[kname]
-        by_path = {"ell": ell_path[kname], "packed": packed[kname]}
-        kernels.append({
+        by_path = {"ell": ell_path[kname], "packed": packed[kname],
+                   "lm_serve": lm["launches"][kname]}
+        entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            # K5 carries the main (ell) path, the new kernels the packed one
-            "launches": by_path["ell" if kname == "ell_edge_map" else "packed"],
+            "launches": by_path[home.get(kname, "packed")],
             "launches_by_path": by_path,
             "launches_per_call": m["launches_per_call"],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-        })
+        }
+        if "at_zipf_8192" in m:
+            entry["at_zipf_8192"] = {k: m["at_zipf_8192"][k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "distinct_rows")}
+        kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,16 +1,18 @@
 """Carry the reference's state across: numpy arrays in, the port's types out.
 
-The parity tests feed the JAX package's own graph and tiles (as numpy
-arrays) through these, so both sides compute on identical inputs whatever
-the copied generators do.
+The parity tests feed the JAX package's own graph, tiles and LM weights (as
+numpy arrays) through these, so both sides compute on identical inputs
+whatever the copied generators do.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .configs.base import ArchConfig
+from .device import resolve_device
 from .graph.csr import CSR, Graph
 from .kernels.csr_spmv.ops import EllGroup
 from .kernels.edge_map.ops import EllTileGroup
@@ -18,7 +20,8 @@ from .pack import codec
 from .pack.layout import ColdSegment, HotGroup, PackedAdjacency
 
 __all__ = ["graph_from_numpy", "tiles_from_numpy",
-           "packed_adjacency_from_numpy", "ell_groups_from_numpy"]
+           "packed_adjacency_from_numpy", "ell_groups_from_numpy",
+           "lm_params_from_numpy"]
 
 
 def graph_from_numpy(in_indptr, in_indices, in_weights: Optional[np.ndarray],
@@ -110,3 +113,47 @@ def ell_groups_from_numpy(
     return [EllGroup(rows=t(rows, np.int64), idx=t(idx, np.int32),
                      w=t(w, np.float32), num_rows=int(num_rows))
             for rows, idx, w, num_rows in groups]
+
+
+def _leaves(tree, prefix: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """(dotted name, array) for every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], np.asarray(tree)
+
+
+def lm_state_from_numpy(tree: Dict[str, Any],
+                        cfg: ArchConfig) -> Dict[str, np.ndarray]:
+    """The reference's LM params pytree (numpy leaves) as the port's
+    state-dict names.  ``periods[slot]`` is unstacked along axis 0 into
+    layer ``period * len(pattern) + slot``; ``tail[i]`` becomes layer
+    ``n_periods * len(pattern) + i``; ``embed`` and ``final_norm`` keep
+    their names."""
+    plen = len(cfg.layer_pattern())
+    state = dict(_leaves(tree["embed"], "embed."))
+    state.update(_leaves(tree.get("final_norm", {}), "final_norm."))
+    for slot, sub in enumerate(tree["periods"]):
+        for name, a in _leaves(sub, ""):
+            for period in range(a.shape[0]):
+                state[f"layers.{period * plen + slot}.{name}"] = a[period]
+    base = (cfg.n_layers // plen) * plen
+    for i, sub in enumerate(tree.get("tail", ())):
+        for name, a in _leaves(sub, ""):
+            state[f"layers.{base + i}.{name}"] = a
+    return state
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig, device=None):
+    """A port ``LM`` on ``device`` (the card unless the caller asks for the
+    CPU) holding copies of the reference's weights; every parameter must be
+    matched (``load_state_dict(strict=True)``)."""
+    from .lm.model import LM
+
+    state = {k: torch.from_numpy(np.array(a))
+             for k, a in lm_state_from_numpy(tree, cfg).items()}
+    model = LM(cfg, device=resolve_device(device),
+               dtype=state["embed.unembed"].dtype)
+    model.load_state_dict(state, strict=True)
+    return model

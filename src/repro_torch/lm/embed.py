@@ -1,0 +1,89 @@
+"""DBG-partitioned vocabulary embedding (integration K2).
+
+Port of ``repro.lm.embed``.  After DBG frequency reordering
+(``repro_torch.core.vocab``) the first ``hot_rows`` rows of the table are the
+hot panel and the rest the cold tail.  Every lookup is one launch of K2
+(``kernels.gather_embed``) on the card: the split gather over ``hot`` /
+``cold``; a table with no cold tail, or an unsplit one, goes through K2's
+hot-only entry.  The unembedding is a plain matrix product.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from ..kernels.gather_embed import hot_gather, split_gather
+
+__all__ = ["EmbedDims", "embed_init", "embed_lookup", "unembed"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbedDims:
+    vocab: int
+    d_model: int
+    hot_rows: int = 0  # 0 → no split (one table)
+    pad_multiple: int = 2048  # Megatron-style vocab padding: 16 shards x 128
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.pad_multiple
+        return -(-self.vocab // m) * m
+
+    @property
+    def cold_rows(self) -> int:
+        return self.padded_vocab - min(self.hot_rows, self.padded_vocab)
+
+
+def _normal(shape, scale, generator, device, dtype) -> nn.Parameter:
+    """N(0, scale²) from ``generator``, or uninitialised when it is None
+    (the caller loads the values, as ``convert.lm_params_from_numpy`` does)."""
+    t = torch.empty(shape, device=device, dtype=dtype)
+    if generator is not None:
+        t.normal_(generator=generator).mul_(scale)
+    return nn.Parameter(t)
+
+
+def embed_init(dims: EmbedDims, *, generator=None, device=None,
+               dtype=torch.float32) -> nn.ParameterDict:
+    """Tables sized to ``padded_vocab``: ``hot`` (and ``cold`` when the
+    padded vocabulary is larger) or one ``table``, and ``unembed`` (D, V).
+    Pad ids are never produced; pad logits are masked by ``generate``."""
+    scale = 1.0 / math.sqrt(dims.d_model)
+    v = dims.padded_vocab
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    p = nn.ParameterDict()
+    if dims.hot_rows > 0:
+        hot = min(dims.hot_rows, v)
+        p["hot"] = _normal((hot, dims.d_model), scale, **kw)
+        if v > hot:
+            p["cold"] = _normal((v - hot, dims.d_model), scale, **kw)
+    else:
+        p["table"] = _normal((v, dims.d_model), scale, **kw)
+    p["unembed"] = _normal((dims.d_model, v), scale, **kw)
+    return p
+
+
+def embed_lookup(params: nn.ParameterDict, ids: torch.Tensor) -> torch.Tensor:
+    """ids: (B, S) integer → (B, S, D), one K2 launch on the card.  Ids
+    outside the padded vocabulary are clamped as the reference's gathers
+    clamp them."""
+    flat = ids.reshape(-1)
+    if "table" in params:
+        table = params["table"]
+        rows = hot_gather(flat.clamp(0, table.shape[0] - 1).to(torch.int32),
+                          table)
+    elif "cold" in params:
+        rows = split_gather(params["hot"], params["cold"], flat)
+    else:  # hot only: the reference reads row 0 for an id past the panel
+        hot = params["hot"]
+        rows = hot_gather(torch.where(flat < hot.shape[0], flat, 0)
+                          .to(torch.int32), hot)
+    return rows.reshape(*ids.shape, rows.shape[-1])
+
+
+def unembed(params: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) → (B, S, padded V) logits."""
+    return x @ params["unembed"]

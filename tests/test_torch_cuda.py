@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card (marked ``cuda``; skips without a card):
-K5, K4, K1 and hist_bin against their plain versions, the apps on ``ell``
-and ``packed`` against ``flat``, and the wrappers raising rather than
-falling back.
+K5, K4, K1, hist_bin and K2 against their plain versions, the apps on
+``ell`` and ``packed`` against ``flat``, the LM's greedy decode on the card
+against the CPU, and the wrappers raising rather than falling back.
 
 Run on a machine with an NVIDIA card and ``nvcc``:
 
@@ -241,3 +241,74 @@ def test_new_wrappers_raise_instead_of_falling_back(cuda):
                  torch.zeros(2, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="is on cpu"):
         hist_bin(deg, torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,c,d,t", [(128, 384, 128, 256), (4, 6, 6, 33),
+                                     (16, 48, 100, 31), (64, 192, 2, 1000)])
+def test_hot_gather_matches_plain_version(cuda, dtype, h, c, d, t):
+    """Bitwise, on both entry points: ids past the table, negative ids, an
+    all-hot and an all-cold batch; rows of 16-byte multiples take the vector
+    path, the others (and a table that starts off a 16-byte boundary) the
+    scalar one."""
+    from repro_torch.kernels.gather_embed import (hot_gather, hot_gather_ref,
+                                                  split_gather_ref)
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(h + d)
+    full = torch.randn((h + c + 1, d), generator=gen, device=cuda).to(dt)
+    hot, cold = full[:h], full[h + 1:]  # cold starts d * elem bytes in
+    ids = torch.randint(-3, h + c + 9, (t,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    batches = {"mixed": ids, "hot": ids.clamp(0, h - 1),
+               "cold": ids.clamp(h, h + c - 1)}
+    before = hot_gather.launches
+    for what, b in batches.items():
+        got = hot_gather(b, hot, cold)
+        assert torch.equal(got, split_gather_ref(hot, cold, b)), what
+        assert torch.equal(hot_gather(b, hot), hot_gather_ref(b, hot)), what
+    shifted = full.reshape(-1)[2:2 + h * d].view(h, d)  # off 16 B
+    assert torch.equal(hot_gather(ids, shifted, cold),
+                       split_gather_ref(shifted, cold, ids))
+    torch.cuda.synchronize()
+    assert hot_gather.launches == before + 2 * len(batches) + 1
+    assert torch.equal(hot_gather(batches["cold"], hot),
+                       torch.zeros((t, d), dtype=dt, device=cuda))
+
+
+def test_hot_gather_raises_instead_of_falling_back(cuda):
+    from repro_torch.kernels.gather_embed import hot_gather
+
+    hot = torch.randn((4, 8), device=cuda)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        hot_gather(ids.long(), hot)
+    with pytest.raises(ValueError, match="is on cpu"):
+        hot_gather(ids, hot, torch.randn((4, 8)))
+    with pytest.raises(ValueError, match="is on cpu"):
+        hot_gather(ids.cpu(), hot)
+
+
+def test_lm_generate_on_the_card_matches_the_cpu(cuda):
+    """Reduced Yi-9B with GQA: the same weights on both devices give the same
+    greedy tokens, logits within rtol 1e-4, atol 1e-5 (float32 matmuls, TF32
+    off), and one K2 launch per decode step."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.gather_embed import hot_gather
+    from repro_torch.lm import model
+    from repro_torch.lm.serve import generate
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced(get_config("yi_9b"), n_kv_heads=2)
+    m = model.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    want, want_lg = generate(m, prompt, max_new=8, return_logits=True)
+    before = hot_gather.launches
+    got, got_lg = generate(m.to(cuda), prompt.to(cuda), max_new=8,
+                           return_logits=True)
+    torch.cuda.synchronize()
+    assert hot_gather.launches - before == 16
+    assert torch.equal(got.cpu(), want)
+    for a, b in zip(got_lg, want_lg):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

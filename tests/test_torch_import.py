@@ -54,6 +54,14 @@ def _imported_names(path: Path):
             yield node.module or ""
 
 
+def test_the_source_scan_covers_every_package_of_the_port():
+    scanned = {p.relative_to(PORT).parts[0] for p in SOURCES if PORT in p.parents}
+    for pkg in ("apps", "configs", "core", "data", "graph", "kernels",
+                "launch", "lm", "pack"):
+        assert pkg in scanned
+    assert ROOT / "chip_smoke.py" in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     for name in _imported_names(path):
@@ -148,6 +156,7 @@ def test_load_all_builds_every_kernel_source_in_one_call(monkeypatch):
         monkeypatch.setattr(mod, "_bind", lambda libs, n=name: bound.append(n))
     kernels.load_all()
     assert [src.name for src, _ in seen] == [
-        "edge_map.cu", "pack_spmv.cu", "csr_spmv.cu", "hist_bin.cu"]
+        "edge_map.cu", "pack_spmv.cu", "csr_spmv.cu", "hist_bin.cu",
+        "gather_embed.cu"]
     assert all(src.exists() for src, _ in seen)
     assert bound == list(kernels.KERNEL_MODULES)
