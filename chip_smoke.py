@@ -13,8 +13,10 @@ Phases (any failure raises, and the script exits non-zero):
      K1, hist_bin and K2 — with every ``nvcc`` started together;
   3. K5 vs its plain version on the card, over every static variant, on all
      rows of every tile class of the ``kr`` registry graph at ``small`` scale
-     (uint16 ids) and of the main-path graph (int32 ids): min/max bitwise,
-     sums within 2e-6 · (1 + max|y|);
+     (uint16 ids) and of the main-path graph (int32 ids), a class wider
+     than 1,024 lanes through its segment list: min/max bitwise, sums within
+     2e-6 · (1 + max|y|), and every sum on the hub class bitwise equal over
+     two calls;
   4. the main path: a ``kr``-signature RMAT graph (a=.57, b=.19, c=.19,
      average degree 20) at 2^21 vertices, reordered with DBG on out-degree,
      then PageRank (original and DBG orderings), PageRank-delta, SSSP, BC and
@@ -22,6 +24,8 @@ Phases (any failure raises, and the script exits non-zero):
      card; K5's launch count must grow in every app;
   5. times at the main path's PageRank pull: K5, its plain version, one
      library call (cuSPARSE SpMV through ``torch.sparse``) and the bound;
+     K5 per tile class with its lanes per row (the hub class named), and on
+     the hub class the split against a block per row and other chunks;
   6. the packed path on the same graphs: ``backend="packed"`` (hot slot
      tables + decoded cold tiles) for the five apps against ``flat``,
      ``pack_spmv`` (K4) and ``dbg_spmv`` (K1) against the flat pull and the
@@ -30,10 +34,14 @@ Phases (any failure raises, and the script exits non-zero):
   7. K4, K1 and hist_bin vs their plain versions on the card at the packed
      path's shapes: K4 on every hot table of the main-path graph (uint32
      ids), of ``kr``/small (uint16) and of a 256-vertex graph (uint8), each
-     unweighted and weighted; K1 on every DBG group; hist_bin on the
-     out-degrees, also with bounds that do not end in 0;
+     unweighted and weighted; K1 on every DBG group, walking the degrees
+     and every lane, each against the plain version and the two bitwise
+     against each other; hist_bin on the out-degrees, also with bounds that
+     do not end in 0;
   8. times of K4, K1 and hist_bin at their packed-path calls, beside their
-     plain versions, one library call each and their bounds;
+     plain versions, one library call each and their bounds (K1 both ways,
+     per DBG group, with the bound over the real lanes and over the padded
+     planes);
   9. (the graph state freed) K2 vs its plain version on the card, bitwise:
      ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
      widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
@@ -54,8 +62,10 @@ Phases (any failure raises, and the script exits non-zero):
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms``, its worst
 error against the plain version ``max_abs_err``, the TPU kernel it replaces
-``replaces``, its launches on each path ``launches_by_path``) and, as its
-last line, ``{"ok": true, "device": {...}}``.
+``replaces``, its launches on each path ``launches_by_path``; K1's ``ms``
+and ``bound_ms`` are its degree walk's, ``padded_ms`` and
+``padded_bound_ms`` its every-lane path's) and, as its last line,
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -72,6 +82,7 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 LOG2_VERTICES = 21         # main-path graph: 2,097,152 vertices
 REPS = 20                  # timed calls per measurement (median)
 PLAIN_CHUNK_LANES = 1 << 24  # rows per plain-version call, in lanes
+SEGMENT_SWEEP = (1024, 2048, 8192, 16384)  # other K5 split chunks timed
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
@@ -166,7 +177,9 @@ def _plain(x, idx, deg, w=None, alive=None, init_rows=None, **kw):
 
 def variant_grid(tiles, num_vertices, device, seed):
     """K5 against its plain version over every static variant, on all rows of
-    every tile class; returns (variants checked, max |err| of the sums)."""
+    every tile class (a wide class through its segment list); every sum on a
+    wide class twice, bitwise.  Returns (variants checked, max |err| of the
+    sums, sums checked twice)."""
     import itertools
 
     import torch
@@ -183,13 +196,14 @@ def variant_grid(tiles, num_vertices, device, seed):
     for t in tiles:
         idx, deg = t.idx, t.deg
         r, w = idx.shape
-        planes.append(dict(idx=idx, deg=deg, w=rand(r, w),
+        planes.append(dict(idx=idx, deg=deg, segments=t.segments,
+                           w=rand(r, w),
                            alive=(rand(r, w) < 0.8).to(torch.int8),
                            init1=rand(r), init8=rand(r, 8)))
     xs = {1: rand(v), 8: rand(v, 8)}
     frs = {"shared": (rand(v) < 0.5).to(torch.int8),
            "planar": (rand(v, 8) < 0.5).to(torch.int8)}
-    n, max_err = 0, 0.0
+    n, max_err, twice = 0, 0.0, 0
     for reduce, weight, frontier, alive, init, k in itertools.product(
             ("sum", "min", "max"), ("none", "unit", "plane"),
             ("none", "shared", "planar"), (False, True), (False, True), (1, 8)):
@@ -203,11 +217,20 @@ def variant_grid(tiles, num_vertices, device, seed):
                       frontier=None if frontier == "none" else frs[frontier],
                       alive=p["alive"] if alive else None,
                       init_rows=p[f"init{k}"] if init else None,
-                      neutral=neutral, row_tile=r, width_tile=w)
-            got = ell_edge_map(xs[k], p["idx"], p["deg"], **kw)
-            want = _plain(xs[k], p["idx"], p["deg"],
-                          **{a: b for a, b in kw.items()
-                             if a not in ("row_tile", "width_tile")})
+                      neutral=neutral)
+            got = ell_edge_map(xs[k], p["idx"], p["deg"],
+                               segments=p["segments"], row_tile=r,
+                               width_tile=w, **kw)
+            want = _plain(xs[k], p["idx"], p["deg"], **kw)
+            if reduce == "sum" and p["segments"] is not None:
+                again = ell_edge_map(xs[k], p["idx"], p["deg"],
+                                     segments=p["segments"], row_tile=r,
+                                     width_tile=w, **kw)
+                if not torch.equal(got, again):
+                    raise AssertionError(
+                        f"sum/{weight}/{frontier}/alive={alive}/init={init}/"
+                        f"K={k}: two calls on the ({r}, {w}) class differ")
+                twice += 1
             max_err = max(max_err, _assert_close(
                 got, want, reduce,
                 f"{reduce}/{weight}/{frontier}/alive={alive}/init={init}/K={k}"
@@ -218,12 +241,12 @@ def variant_grid(tiles, num_vertices, device, seed):
     for p in planes:
         r, w = p["idx"].shape
         kw = dict(reduce="max", identity=-128.0)
-        got = ell_edge_map(reach, p["idx"], p["deg"], row_tile=r, width_tile=w,
-                           **kw)
+        got = ell_edge_map(reach, p["idx"], p["deg"], segments=p["segments"],
+                           row_tile=r, width_tile=w, **kw)
         _assert_close(got, _plain(reach, p["idx"], p["deg"], **kw),
                       "max", "radii identity")
     _sync()
-    return n + 1, max_err
+    return n + 1, max_err, twice
 
 
 # ---------------------------------------------------------------- phase 4
@@ -384,18 +407,24 @@ def time_pull(flat, ell, reps):
     path (DBG ordering): one full edge map each."""
     import torch
 
+    from repro_torch.kernels._wrap import lanes_per_row
     from repro_torch.kernels.edge_map import (ell_edge_map, ell_edge_map_ref,
                                               fused_edge_map,
-                                              fused_edge_map_bytes)
+                                              fused_edge_map_bytes,
+                                              row_segments)
 
     v = ell.num_vertices
-    x = (torch.rand(v, generator=torch.Generator(device="cuda").manual_seed(1),
-                    device="cuda") / ell.out_deg.clamp(min=1))
+    dev = ell.out_deg.device
+    x = (torch.rand(v, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev) / ell.out_deg.clamp(min=1))
     tiles = ell.in_tiles
 
+    def call(t, segments):
+        return ell_edge_map(x, t.idx, t.deg, segments=segments,
+                            row_tile=t.idx.shape[0], width_tile=t.idx.shape[1])
+
     def kernels():
-        return [ell_edge_map(x, t.idx, t.deg, row_tile=t.idx.shape[0],
-                             width_tile=t.idx.shape[1]) for t in tiles]
+        return [call(t, t.segments) for t in tiles]
 
     def plain():
         return [ell_edge_map_ref(x, t.idx, t.deg) for t in tiles]
@@ -412,13 +441,32 @@ def time_pull(flat, ell, reps):
     fused_ms = _events_ms(lambda: fused_edge_map(tiles, x, v, reduce="sum"),
                           reps)
     plain_ms = _events_ms(plain, reps)
-    per_class = [
-        (tuple(t.idx.shape), str(t.idx.dtype).replace("torch.", ""),
-         int(t.deg.sum()),
-         _events_ms(lambda t=t: ell_edge_map(
-             x, t.idx, t.deg, row_tile=t.idx.shape[0],
-             width_tile=t.idx.shape[1]), reps))
-        for t in tiles]
+    per_class = []
+    for t in tiles:
+        r, w = t.idx.shape
+        edges = int(t.deg.sum())
+        share = (edges * t.idx.element_size() + r * 8) / HBM_BYTES_PER_S * 1e3
+        c = dict(shape=(r, w), dtype=str(t.idx.dtype).replace("torch.", ""),
+                 edges=edges, max_deg=int(t.deg.max()),
+                 group=lanes_per_row(w), bound_share_ms=share,
+                 segments=None if t.segments is None else int(t.segments.shape[0]),
+                 ms=_events_ms(lambda t=t: call(t, t.segments), reps))
+        if t.segments is not None:
+            # The wide class's other walks, on the same inputs: a block per
+            # whole row (one segment per row), the width cut every
+            # SEGMENT_LANES with no list, and the list at other chunks.
+            deg = t.deg.cpu().numpy()
+            whole = torch.from_numpy(row_segments(deg, w)).to(dev)
+            c["block_per_row_ms"] = _events_ms(lambda t=t: call(t, whole),
+                                               reps)
+            c["no_list_ms"] = _events_ms(lambda t=t: call(t, None), reps)
+            sweep = {}
+            for chunk in SEGMENT_SWEEP:
+                seg = torch.from_numpy(row_segments(deg, chunk)).to(dev)
+                sweep[chunk] = _events_ms(lambda t=t, seg=seg: call(t, seg),
+                                          reps)
+            c["split_ms_by_chunk"] = sweep
+        per_class.append(c)
     ga = ell.ga
     with warnings.catch_warnings():  # "sparse CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
@@ -609,14 +657,23 @@ def new_kernel_grid(pk, small, device):
     err1 = 0.0
     for gr in pk["groups"]:
         r, w = gr.idx.shape
-        got = ell_spmv(x, gr.idx, gr.w, row_tile=r, width_tile=w)
-        ref = _chunked(lambda i, ww: ell_spmv_ref(x, i, ww), r, w, gr.idx,
-                       gr.w)
-        err1 = max(err1, _assert_close(got, ref, "sum",
-                                       f"K1 on a ({r}, {w}) group"))
+        got = ell_spmv(x, gr.idx, gr.w, deg=gr.deg, max_deg=gr.max_deg,
+                       segments=gr.segments, row_tile=r, width_tile=w)
+        every = ell_spmv(x, gr.idx, gr.w, row_tile=r, width_tile=w)
+        if not torch.equal(got, every):
+            raise AssertionError(f"K1 on a ({r}, {w}) group: the degree walk "
+                                 "and the every-lane path differ (must be "
+                                 "bitwise on a finite x)")
+        for y, d, what in ((got, gr.deg, "degree walk"),
+                           (every, None, "every lane")):
+            ref = _chunked(lambda i, ww, dd: ell_spmv_ref(x, i, ww, deg=dd),
+                           r, w, gr.idx, gr.w, d)
+            err1 = max(err1, _assert_close(y, ref, "sum",
+                                           f"K1 ({what}) on a ({r}, {w}) group"))
     _sync()
-    log(f"  K1 vs plain: {len(pk['groups'])} groups agree, max |err| "
-        f"{err1:.3g}")
+    log(f"  K1 vs plain: {len(pk['groups'])} groups agree, the degree walk and "
+        f"the every-lane path each against the plain version (max |err| "
+        f"{err1:.3g}) and bitwise against each other")
 
     deg_t, b_t = pk["deg_t"], pk["b_t"]
     for bounds in (b_t, b_t[:-1].contiguous()):  # the second ends above 0
@@ -710,9 +767,11 @@ def time_hot_spmv(pk, reps):
 
 def time_ell_spmv(pk, reps):
     """K1 at ``dbg_spmv``'s call on the main-path graph (64 x 128 geometry):
-    one launch per DBG group; cuSPARSE over the in-CSR as the yardstick."""
+    one launch per DBG group, with the groups' degrees (``ms``) and without
+    (``padded_ms``); cuSPARSE over the in-CSR as the yardstick."""
     import torch
 
+    from repro_torch.kernels._wrap import lanes_per_row
     from repro_torch.kernels.csr_spmv import ell_spmv, ell_spmv_ref
 
     groups = pk["groups"]
@@ -722,31 +781,48 @@ def time_ell_spmv(pk, reps):
     x = torch.rand(v, generator=torch.Generator(device=dev).manual_seed(5),
                    device=dev)
 
+    def one(gr, walk=True):
+        kw = (dict(deg=gr.deg, max_deg=gr.max_deg, segments=gr.segments)
+              if walk else {})
+        return ell_spmv(x, gr.idx, gr.w, row_tile=64, width_tile=128, **kw)
+
     def kernels():
-        return [ell_spmv(x, gr.idx, gr.w, row_tile=64, width_tile=128)
-                for gr in groups]
+        return [one(gr) for gr in groups]
+
+    def padded():
+        return [one(gr, False) for gr in groups]
 
     def plain():
-        return [_chunked(lambda i, w: ell_spmv_ref(x, i, w), gr.idx.shape[0],
-                         gr.idx.shape[1], gr.idx, gr.w) for gr in groups]
+        return [_chunked(lambda i, w, d: ell_spmv_ref(x, i, w, deg=d),
+                         gr.idx.shape[0], gr.idx.shape[1], gr.idx, gr.w,
+                         gr.deg) for gr in groups]
 
     n0 = ell_spmv.launches
     got = kernels()
     per_call = ell_spmv.launches - n0
     err = 0.0
-    for a, b in zip(got, plain()):
+    for a, b, c in zip(got, plain(), padded()):
         err = max(err, _assert_close(a, b, "sum", "timed K1 vs plain"))
+        if not torch.equal(a, c):
+            raise AssertionError("timed K1: degree walk != every-lane path")
     csr = _library_csr(ga.in_ptr, ga.in_src, torch.ones_like(ga.in_w), (v, v))
     lanes = sum(gr.idx.numel() for gr in groups)
+    edges = sum(int(gr.deg.sum()) for gr in groups)
     rows = sum(gr.idx.shape[0] for gr in groups)
-    bound_ms, bound_by = _bound(lanes * 8 + v * 4 + rows * 4, 2 * lanes)
+    # The degree walk must read the real lanes' ids and weights, x once, and
+    # deg and y per row; the every-lane path reads every lane and no deg.
+    bound_ms, bound_by = _bound(edges * 8 + v * 4 + rows * 8, 2 * edges)
+    padded_bound_ms, _ = _bound(lanes * 8 + v * 4 + rows * 4, 2 * lanes)
     return dict(ms=_events_ms(kernels, reps), plain_ms=_events_ms(plain, reps),
+                padded_ms=_events_ms(padded, reps),
                 library_ms=_events_ms(lambda: csr @ x[:, None], reps),
                 launches_per_call=per_call, max_abs_err=err,
-                bound_ms=bound_ms, bound_by=bound_by, lanes=lanes,
-                per_group=[(tuple(gr.idx.shape), _events_ms(
-                    lambda gr=gr: ell_spmv(x, gr.idx, gr.w, row_tile=64,
-                                           width_tile=128), reps))
+                bound_ms=bound_ms, bound_by=bound_by,
+                padded_bound_ms=padded_bound_ms, lanes=lanes, edges=edges,
+                per_group=[(tuple(gr.idx.shape), int(gr.deg.sum()),
+                            lanes_per_row(gr.max_deg),
+                            _events_ms(lambda gr=gr: one(gr), reps),
+                            _events_ms(lambda gr=gr: one(gr, False), reps))
                            for gr in groups])
 
 
@@ -1089,7 +1165,7 @@ def main() -> int:
     from repro_torch.core.reorder import dbg_spec
     from repro_torch.graph import datasets
     from repro_torch.kernels import load_all
-    from repro_torch.kernels.edge_map import ell_tiles
+    from repro_torch.kernels.edge_map import SEGMENT_LANES, ell_tiles
 
     t_start = time.perf_counter()
     # 1. device
@@ -1115,13 +1191,17 @@ def main() -> int:
     big_tiles = ell_tiles(g_dbg.in_csr, dbg_spec(float(in_deg.mean())).boundaries,
                           device=dev)
     t0 = time.perf_counter()
-    n1, e1 = variant_grid(small_tiles, small.num_vertices, dev, seed=0)
-    n2, e2 = variant_grid(big_tiles, g_dbg.num_vertices, dev, seed=1)
+    n1, e1, _ = variant_grid(small_tiles, small.num_vertices, dev, seed=0)
+    n2, e2, twice = variant_grid(big_tiles, g_dbg.num_vertices, dev, seed=1)
+    if twice == 0:
+        raise AssertionError("the main-path graph has no class wider than "
+                             "1,024 lanes to check twice")
     log(f"kernel vs plain: {n1} variants on kr/small "
         f"({[tuple(t.idx.shape) for t in small_tiles]}, "
         f"{small_tiles[0].idx.dtype}) and {n2} on the main-path graph's "
         f"classes ({[tuple(t.idx.shape) for t in big_tiles]}, int32 ids), "
-        f"all rows, all agree; max |err| of sums {max(e1, e2):.3g} "
+        f"all rows, all agree; max |err| of sums {max(e1, e2):.3g}; "
+        f"{twice} sums on the hub class bitwise equal over two calls "
         f"({time.perf_counter() - t0:.1f} s)")
     del big_tiles
     torch.cuda.empty_cache()
@@ -1137,8 +1217,24 @@ def main() -> int:
     # 5. K5 times
     flat, ell = backends["dbg"]
     t = time_pull(flat, ell, REPS)
-    for shape, dtype, edges, ms in t["per_class"]:
-        log(f"  class {shape} {dtype}: {edges} edges, kernel {ms:.4f} ms")
+    for c in t["per_class"]:
+        hub = " (the hub class)" if c["segments"] is not None else ""
+        line = (f"  class {c['shape']} {c['dtype']}{hub}: {c['edges']} edges, "
+                f"longest row {c['max_deg']}, {c['group']} lanes per row")
+        if c["segments"] is not None:
+            line += (f", split into {c['segments']} segments: kernel "
+                     f"{c['ms']:.4f} ms (2 launches); a block per whole row "
+                     f"{c['block_per_row_ms']:.4f} ms; no list (width cut "
+                     f"every {SEGMENT_LANES}) {c['no_list_ms']:.4f} ms; list "
+                     "by chunk " + ", ".join(
+                         f"{k}: {m:.4f}" for k, m in
+                         c["split_ms_by_chunk"].items()) + " ms")
+        else:
+            line += f": kernel {c['ms']:.4f} ms"
+        if c["shape"][1] > 1024 and c["group"] != 256:
+            raise AssertionError(f"class {c['shape']} ran with {c['group']} "
+                                 "lanes per row")
+        log(line + f"; its share of the bound {c['bound_share_ms']:.4f} ms")
     log(f"timed pull: kernel {t['ms']:.4f} ms ({t['launches_per_call']} "
         f"launches), full fused_edge_map {t['fused_ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, cuSPARSE {t['library_ms']:.4f} ms (max |err| "
@@ -1146,7 +1242,7 @@ def main() -> int:
         f"{t['bound_ms']:.4f} ms ({t['bound_bytes']} B), padded-plane bound "
         f"{t['padded_bound_ms']:.4f} ms ({t['padded_bytes']} B)")
     log(json.dumps({"apps": records, "edges": g.num_edges,
-                    "vertices": g.num_vertices}))
+                    "vertices": g.num_vertices, "k5_per_class": t["per_class"]}))
     del backends, flat, ell
     gc.collect()
     torch.cuda.empty_cache()
@@ -1164,6 +1260,11 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({time.perf_counter() - t0:.1f} s)")
     log(json.dumps({"packed_apps": pk["records"]}))
+    for app, rec in records.items():
+        p_s = pk["records"].get(app, {}).get("packed_s")
+        log(f"app {app}, seconds per run: ell {rec['ell_s']:.4f}, packed "
+            + ("-" if p_s is None else f"{p_s:.4f}")
+            + f", flat {rec['flat_s']:.4f}")
 
     # 7. K4, K1 and hist_bin vs their plain versions
     t0 = time.perf_counter()
@@ -1184,11 +1285,15 @@ def main() -> int:
         f"launches), plain {k4['plain_ms']:.4f} ms, cuSPARSE "
         f"{k4['library_ms']:.4f} ms (max |err| vs K4 "
         f"{k4['library_max_abs_err']:.3g}), bound {k4['bound_ms']:.4f} ms")
-    for shape, ms in k1["per_group"]:
-        log(f"  K1 group {shape}: {ms:.4f} ms")
-    log(f"timed K1 (dbg_spmv, {k1['lanes']} lanes): kernel {k1['ms']:.4f} ms "
-        f"({k1['launches_per_call']} launches), plain {k1['plain_ms']:.4f} ms, "
-        f"cuSPARSE {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms")
+    for shape, edges, lanes, ms, pms in k1["per_group"]:
+        log(f"  K1 group {shape}: {edges} edges, degree walk {ms:.4f} ms "
+            f"({lanes} lanes per row{', split' if lanes == 256 else ''}), "
+            f"every lane {pms:.4f} ms")
+    log(f"timed K1 (dbg_spmv, {k1['edges']} edges in {k1['lanes']} lanes): "
+        f"degree walk {k1['ms']:.4f} ms ({k1['launches_per_call']} launches), "
+        f"every lane {k1['padded_ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
+        f"cuSPARSE {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+        f"(real lanes), {k1['padded_bound_ms']:.4f} ms (padded planes)")
     log(f"timed hist_bin: kernel {hb['ms']:.4f} ms, plain "
         f"{hb['plain_ms']:.4f} ms, searchsorted + bincount "
         f"{hb['library_ms']:.4f} ms, bound {hb['bound_ms']:.4f} ms; device "
@@ -1274,6 +1379,9 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         }
+        if "padded_ms" in m:  # K1 without the degrees: every lane
+            entry["padded_ms"] = m["padded_ms"]
+            entry["padded_bound_ms"] = m["padded_bound_ms"]
         if "at_zipf_8192" in m:
             entry["at_zipf_8192"] = {k: m["at_zipf_8192"][k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",

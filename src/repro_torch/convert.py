@@ -106,7 +106,9 @@ def ell_groups_from_numpy(
     device: Union[str, torch.device],
 ) -> List[EllGroup]:
     """``(rows, idx, w, num_rows)`` numpy planes → K1 ``EllGroup``s on
-    ``device`` (rows int64, idx int32, w float32)."""
+    ``device`` (rows int64, idx int32, w float32).  ``deg`` stays ``None``:
+    the planes cannot give it (an edge may have weight 0), so K1 reads every
+    lane of these groups."""
     def t(a, dtype):
         return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
 

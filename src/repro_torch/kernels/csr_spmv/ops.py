@@ -18,6 +18,7 @@ import torch
 
 from ...device import resolve_device
 from ...graph import csr as csr_mod
+from .._wrap import class_segments
 from ..edge_map.ops import _round_up
 from .csr_spmv import ell_spmv
 
@@ -30,6 +31,12 @@ class EllGroup:
     idx: torch.Tensor  # (R_pad, W_pad) int32 source indices (0 for padding)
     w: torch.Tensor  # (R_pad, W_pad) float32 weights (0 for padding)
     num_rows: int  # true (unpadded) row count
+    # (R_pad,) int32 true degrees, 0 for padding rows; None when unknown
+    # (the planes alone cannot tell: a real edge may have weight 0)
+    deg: Optional[torch.Tensor] = None
+    max_deg: Optional[int] = None  # the largest of deg (host), with deg
+    # (S, 3) int32 row_segments(deg) of a group wider than 1,024 lanes
+    segments: Optional[torch.Tensor] = None
 
 
 def ell_pack_groups(
@@ -45,7 +52,9 @@ def ell_pack_groups(
 
     The reference fills each row in a Python loop; this fill is one
     vectorized scatter per group (``csr.ragged_offsets``) and gives the same
-    arrays.  Unweighted graphs get weight 1 in every valid lane.
+    arrays.  Unweighted graphs get weight 1 in every valid lane.  Each group
+    also keeps its rows' true degrees (``deg``, ``max_deg``), which K1 walks
+    to, and a group wider than 1,024 lanes its segment list.
     """
     device = resolve_device(device)
     in_csr = g.in_csr
@@ -72,11 +81,16 @@ def ell_pack_groups(
         idx.ravel()[dst] = in_csr.indices[src]
         wgt.ravel()[dst] = (in_csr.weights[src] if in_csr.weights is not None
                             else 1.0)
+        gdeg = np.zeros(r_pad, dtype=np.int32)
+        gdeg[: rows.size] = rdeg
         groups.append(EllGroup(
             rows=torch.from_numpy(rows.astype(np.int64)).to(device),
             idx=torch.from_numpy(idx).to(device),
             w=torch.from_numpy(wgt).to(device),
-            num_rows=int(rows.size)))
+            num_rows=int(rows.size),
+            deg=torch.from_numpy(gdeg).to(device),
+            max_deg=wmax,
+            segments=class_segments(gdeg, wmax, device)))
     return groups
 
 
@@ -89,14 +103,16 @@ def dbg_spmv(
     width_tile: int = 512,
 ) -> torch.Tensor:
     """Full pull-mode edge map: per-group row sums written back to vertex
-    ids; vertices in no group keep 0.
+    ids; vertices in no group keep 0.  A group that keeps its degrees
+    (``gr.deg``) reads only its real lanes.
 
     ``row_tile``/``width_tile`` must match the values used by
     ``ell_pack_groups`` (the packer pads every group to these multiples).
     """
     y = torch.zeros((num_vertices,), dtype=x.dtype, device=x.device)
     for gr in groups:
-        ys = ell_spmv(x, gr.idx, gr.w, row_tile=row_tile,
+        ys = ell_spmv(x, gr.idx, gr.w, deg=gr.deg, max_deg=gr.max_deg,
+                      segments=gr.segments, row_tile=row_tile,
                       width_tile=width_tile)
         y.index_copy_(0, gr.rows, ys[: gr.num_rows])
     return y

@@ -14,28 +14,47 @@
 // (V, K) plane; the frontier is shared (V,) or per query (V, K).  Ids are
 // uint16 or int32, whichever the packer stored.
 //
-// What bounds it on the H100: bytes.  Each lane does one add and one compare
-// per byte-heavy gather; the work is far below the card's float32 rate.  The
-// least traffic is the valid lanes of the idx (and w / alive) planes, deg, x
-// once, the frontier once, init and y: edge_map_tile_bytes in edge_map.py
-// counts the padded planes, and at 3.35 TB/s that is the kernel's floor.
+// What bounds it on the H100: bytes, and the latency of the dependent
+// id -> x[id] gather.  Each lane does one add and one compare per
+// byte-heavy gather; the work is far below the card's float32 rate.  The
+// least traffic is the valid lanes of the idx (and w / alive) planes, deg,
+// x once, the frontier once, init and y; at 3.35 TB/s that is the floor.
+// On a DBG-binned RMAT graph the hub class holds a few thousand rows of up
+// to ~10^5 lanes, and how fast its longest rows finish sets the class's
+// time.
 //
 // What the design does about it:
-//  * a group of G lanes (G = 8, 16 or 32, the smallest power of two >= the
-//    tile's width, capped at a warp) owns one row and strides its columns, so
-//    lanes past deg[r] — the ELL padding — are never read at all;
+//  * a group of G lanes owns one row and strides its columns, so lanes past
+//    deg[r] — the ELL padding — are never read at all.  G comes from the
+//    tile's width (repro_torch.kernels._wrap.lanes_per_row): 8, 16 or 32
+//    lanes (several rows per block) up to 1,024 lanes, and a whole
+//    256-thread block above that, so a hub row of ~75k lanes is walked by
+//    256 threads, not by one warp's ~2,400 steps;
+//  * where a thread walks several lanes of its row, it keeps several lanes'
+//    loads in flight (ids, weights and alive bytes, then the frontier and
+//    x[id]) before it reduces them, in lane order, so it waits on the
+//    gather once per batch, not per lane; where it walks at most four, it
+//    keeps no batch, and the registers it saves buy occupancy;
+//  * the wide path splits rows into segments of at most a few thousand
+//    lanes (row, lane_begin, lane_end; SEGMENT_LANES in edge_map.py), one
+//    block each: every block writes one partial per query lane, and a
+//    second launch folds each row's partials in segment order, so a row far
+//    longer than the rest no longer sets the class's tail (on an H100, a
+//    block per whole row took ~1.6x the split's time on the hub class of a
+//    2^21-vertex RMAT graph);
 //  * the ids are read at their stored width (uint16 halves the idx plane);
 //  * x is gathered through L2: after DBG the hot vertices are contiguous, and
 //    at the sizes the paper runs x fits the 50 MB L2;
 //  * each lane reduces its columns in order, then the group reduces with a
-//    fixed shuffle tree: sums come out the same from run to run, with no
-//    float atomics, and min / max are exact;
+//    fixed shuffle tree (a block: each warp's tree, then the eight warp
+//    partials in index order through shared memory): sums come out the
+//    same from run to run, with no float atomics, and min / max are exact;
 //  * K query lanes of a plane ride one pass over the row's ids, KC of them
 //    per thread (blockIdx.y walks chunks of KC when K > KC).
 //
 // Build: one shared library per reduction, compiled with -DK5_REDUCE=0|1|2
 // (see repro_torch/kernels/_build.py).  The C entry returns cudaGetLastError()
-// after the launch; the launch is on the caller's stream and allocates nothing.
+// after its launches; they are on the caller's stream and allocate nothing.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,6 +67,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 // The reductions.  min / max propagate NaN like torch.minimum / maximum.
 template <int RED>
@@ -76,8 +96,114 @@ __device__ __forceinline__ float lane_start() {
 
 // WMODE: 0 no weight, 1 unit weight (+1, no plane read), 2 weight plane.
 // FMODE: 0 no frontier, 1 shared (V,) frontier, 2 per-query (V, K) frontier.
+//
+// Reduces the lanes c0, c0 + stride, ... < end of one row (plane offset
+// `base`) into acc, UNROLL lanes at a time: all their loads are issued
+// before the first of them is combined, and they are combined in lane order,
+// so the result is the one-lane-at-a-time walk's, bit for bit.  Ids are held
+// in 32 bits (every id is < V < 2^31; a negative int32 id wraps past V and
+// traps), which keeps the batch's registers, and so the occupancy, down.
+template <int RED, typename IdT, int WMODE, int FMODE, bool ALIVE, int KC,
+          int UNROLL>
+__device__ __forceinline__ void walk(
+    float (&acc)[KC], const float* __restrict__ x,
+    const IdT* __restrict__ idx, const float* __restrict__ w,
+    const int8_t* __restrict__ frontier, const int8_t* __restrict__ alive,
+    int64_t base, int64_t c0, int64_t end, int stride, int64_t num_vertices,
+    int k_total, int k0, float neutral, float identity) {
+  for (int64_t c = c0; c < end; c += static_cast<int64_t>(UNROLL) * stride) {
+    uint32_t j[UNROLL];
+    bool ok[UNROLL];
+    float add[UNROLL];
+    bool bad = false;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t cu = c + static_cast<int64_t>(u) * stride;
+      ok[u] = cu < end;
+      j[u] = 0;
+      add[u] = WMODE == 1 ? 1.0f : 0.0f;
+      if (ok[u]) {
+        j[u] = static_cast<uint32_t>(idx[base + cu]);
+        if constexpr (ALIVE) ok[u] = alive[base + cu] > 0;
+        if constexpr (WMODE == 2) add[u] = w[base + cu];
+      }
+      bad |= j[u] >= static_cast<uint64_t>(num_vertices);
+    }
+    if (bad) {
+      __trap();  // an id outside x: a malformed tile, never a silent read
+    }
+    bool active[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      active[u] = true;
+      if constexpr (FMODE == 1) {
+        if (ok[u]) active[u] = frontier[j[u]] > 0;
+      }
+    }
+    float v[UNROLL][KC];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t row_k = static_cast<int64_t>(j[u]) * k_total + k0;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        float t = identity;
+        if (ok[u] && (KC == 1 || k0 + k < k_total)) {
+          t = x[row_k + k];
+          if constexpr (WMODE != 0) t += add[u];
+          if constexpr (FMODE == 1) {
+            if (!active[u]) t = neutral;
+          } else if constexpr (FMODE == 2) {
+            if (frontier[row_k + k] <= 0) t = neutral;
+          }
+        }
+        v[u][k] = t;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (c + static_cast<int64_t>(u) * stride < end) {
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          if (KC == 1 || k0 + k < k_total) {
+            acc[k] = combine<RED>(acc[k], v[u][k]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Lanes of one thread with loads in flight, where a thread walks more than
+// kBatchAbove lanes of its row; below that the warps, not a batch, keep the
+// gathers in flight, and a batch's registers would only cost occupancy.
+template <int KC>
+constexpr int kUnroll = KC == 1 ? 8 : 4;
+constexpr int kBatchAbove = 4;
+
+__device__ __forceinline__ int64_t clip_degree(const int32_t* deg, int64_t row,
+                                               int64_t width) {
+  const int64_t d = deg[row];
+  return d < 0 ? 0 : (d > width ? width : d);
+}
+
+// A row's reduced lanes r -> y: padding lanes take the identity, then the
+// accumulator is seeded by init (or the identity).
+template <int RED, bool INIT>
+__device__ __forceinline__ void finish(float r, float* __restrict__ y,
+                                       const float* __restrict__ init,
+                                       int64_t o, int64_t d, int64_t width,
+                                       float identity) {
+  // For sum the wrapper admits only identity 0, so padding adds nothing and
+  // is skipped outright.
+  if (RED != 0 && d < width) r = combine<RED>(r, identity);
+  const float b = INIT ? init[o] : identity;
+  y[o] = combine<RED>(b, r);
+}
+
+// Narrow classes: a group of `group` (8, 16 or 32) lanes per row; UNROLL is
+// kUnroll, or 1 where no thread walks more than kBatchAbove lanes.
 template <int RED, typename IdT, int WMODE, int FMODE, bool ALIVE, bool INIT,
-          int KC>
+          int KC, int UNROLL>
 __global__ void __launch_bounds__(kThreads)
 edge_map_kernel(const float* __restrict__ x, const IdT* __restrict__ idx,
                 const int32_t* __restrict__ deg, const float* __restrict__ w,
@@ -93,48 +219,14 @@ edge_map_kernel(const float* __restrict__ x, const IdT* __restrict__ idx,
   // Every lane of the warp reaches the shuffles below, so rows past the end
   // still run the tree, with no columns.
   const bool live = row < rows;
-  int64_t d = 0;
-  if (live) {
-    d = deg[row];
-    d = d < 0 ? 0 : (d > width ? width : d);
-  }
+  const int64_t d = live ? clip_degree(deg, row, width) : 0;
 
   float acc[KC];
 #pragma unroll
   for (int k = 0; k < KC; ++k) acc[k] = lane_start<RED>();
-
-  const int64_t base = row * width;
-  for (int64_t c = sub; c < d; c += group) {
-    const int64_t j = static_cast<int64_t>(idx[base + c]);
-    if (static_cast<uint64_t>(j) >= static_cast<uint64_t>(num_vertices)) {
-      __trap();  // an id outside x: a malformed tile, never a silent read
-    }
-    const bool ok = ALIVE ? alive[base + c] > 0 : true;
-    float add = 0.0f;
-    if constexpr (WMODE == 2) add = w[base + c];
-    if constexpr (WMODE == 1) add = 1.0f;
-    bool active = true;
-    if constexpr (FMODE == 1) active = frontier[j] > 0;
-    const float* xj = x + j * k_total + k0;
-#pragma unroll
-    for (int k = 0; k < KC; ++k) {
-      if (KC == 1 || k0 + k < k_total) {
-        float v;
-        if (!ok) {
-          v = identity;
-        } else {
-          v = xj[k];
-          if constexpr (WMODE != 0) v += add;
-          if constexpr (FMODE == 1) {
-            if (!active) v = neutral;
-          } else if constexpr (FMODE == 2) {
-            if (frontier[j * k_total + k0 + k] <= 0) v = neutral;
-          }
-        }
-        acc[k] = combine<RED>(acc[k], v);
-      }
-    }
-  }
+  walk<RED, IdT, WMODE, FMODE, ALIVE, KC, UNROLL>(
+      acc, x, idx, w, frontier, alive, row * width, sub, d, group,
+      num_vertices, k_total, k0, neutral, identity);
 
 #pragma unroll
   for (int k = 0; k < KC; ++k) {
@@ -149,16 +241,113 @@ edge_map_kernel(const float* __restrict__ x, const IdT* __restrict__ idx,
 #pragma unroll
     for (int k = 0; k < KC; ++k) {
       if (KC == 1 || k0 + k < k_total) {
-        float r = acc[k];
-        // Padding lanes take the identity.  For sum the wrapper admits only
-        // identity 0, so they add nothing and are skipped outright.
-        if (RED != 0 && d < width) r = combine<RED>(r, identity);
-        const int64_t o = row * k_total + k0 + k;
-        const float b = INIT ? init[o] : identity;
-        y[o] = combine<RED>(b, r);
+        finish<RED, INIT>(acc[k], y, init, row * k_total + k0 + k, d, width,
+                          identity);
       }
     }
   }
+}
+
+// Wide classes (a 256-thread block per piece of a row), in two launches.
+// edge_map_block_kernel: block b walks one segment of one row and writes its
+// partial[b, k].  The segments are segs[b] = (row, lane_begin, lane_end),
+// sorted by row, each row's in lane order from lane 0, covering [0, deg);
+// or, with segs == nullptr, every row's [0, width) cut into per_row pieces
+// of `chunk` lanes (those past deg walk nothing).  fold_kernel finishes the
+// rows.
+template <int RED, typename IdT, int WMODE, int FMODE, bool ALIVE, int KC>
+__global__ void __launch_bounds__(kThreads)
+edge_map_block_kernel(const float* __restrict__ x,
+                      const IdT* __restrict__ idx,
+                      const int32_t* __restrict__ deg,
+                      const float* __restrict__ w,
+                      const int8_t* __restrict__ frontier,
+                      const int8_t* __restrict__ alive,
+                      const int32_t* __restrict__ segs, int64_t per_row,
+                      int64_t chunk, float* __restrict__ partial,
+                      int64_t rows, int64_t width, int64_t num_vertices,
+                      int k_total, float neutral, float identity) {
+  const int k0 = blockIdx.y * KC;
+  int64_t row, lo, hi;
+  if (segs != nullptr) {
+    const int32_t* s = segs + 3 * static_cast<int64_t>(blockIdx.x);
+    row = s[0];
+    lo = s[1] < 0 ? 0 : s[1];
+    hi = s[2];
+    if (row < 0 || row >= rows) {
+      __trap();  // a segment outside the tile: a malformed list
+    }
+  } else {
+    row = blockIdx.x / per_row;
+    lo = (blockIdx.x - row * per_row) * chunk;
+    hi = lo + chunk;
+  }
+  const int64_t d = clip_degree(deg, row, width);
+  hi = hi < d ? hi : d;
+
+  float acc[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) acc[k] = lane_start<RED>();
+  walk<RED, IdT, WMODE, FMODE, ALIVE, KC, kUnroll<KC>>(
+      acc, x, idx, w, frontier, alive, row * width, lo + threadIdx.x, hi,
+      kThreads, num_vertices, k_total, k0, neutral, identity);
+
+  __shared__ float part[kWarps][KC];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v = combine<RED>(v, __shfl_down_sync(0xffffffffu, v, off));
+    }
+    if (lane == 0) part[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    if (KC == 1 || k0 + k < k_total) {
+      float r = part[0][k];
+#pragma unroll
+      for (int i = 1; i < kWarps; ++i) r = combine<RED>(r, part[i][k]);
+      partial[static_cast<int64_t>(blockIdx.x) * k_total + k0 + k] = r;
+    }
+  }
+}
+
+// fold_kernel: one thread per (row, query lane) with segs == nullptr (the
+// row's per_row partials), else per (segment, query lane), where the
+// thread of a row's first segment (lane_begin == 0) takes the row's
+// partials; it folds them in segment order and finishes the row.
+template <int RED, bool INIT>
+__global__ void __launch_bounds__(kThreads)
+fold_kernel(const int32_t* __restrict__ segs, int64_t num_segs,
+            int64_t per_row, const float* __restrict__ partial,
+            const int32_t* __restrict__ deg, const float* __restrict__ init,
+            float* __restrict__ y, int64_t rows, int64_t width, int k_total,
+            float identity) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t s = t / k_total;
+  const int k = static_cast<int>(t - s * k_total);
+  int64_t row, q, q_end;
+  if (segs == nullptr) {
+    if (s >= rows) return;
+    row = s;
+    q = s * per_row;
+    q_end = q + per_row;
+  } else {
+    if (s >= num_segs || segs[3 * s + 1] != 0) return;
+    row = segs[3 * s];
+    q = s;
+    for (q_end = s + 1; q_end < num_segs && segs[3 * q_end] == row; ++q_end) {
+    }
+  }
+  float r = lane_start<RED>();
+  for (; q < q_end; ++q) r = combine<RED>(r, partial[q * k_total + k]);
+  finish<RED, INIT>(r, y, init, row * k_total + k,
+                    clip_degree(deg, row, width), width, identity);
 }
 
 struct Args {
@@ -170,6 +359,10 @@ struct Args {
   const void* alive;
   const void* init;
   void* y;
+  const void* segs;
+  int64_t num_segs;
+  int64_t chunk;
+  void* partial;
   int64_t rows;
   int64_t width;
   int64_t num_vertices;
@@ -183,17 +376,49 @@ struct Args {
 template <int RED, typename IdT, int WMODE, int FMODE, bool ALIVE, bool INIT,
           int KC>
 cudaError_t launch(const Args& a) {
-  const int64_t threads = a.rows * a.group;
-  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
-                  static_cast<unsigned>((a.k + KC - 1) / KC));
-  edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC>
-      <<<grid, kThreads, 0, a.stream>>>(
-          static_cast<const float*>(a.x), static_cast<const IdT*>(a.idx),
-          static_cast<const int32_t*>(a.deg), static_cast<const float*>(a.w),
-          static_cast<const int8_t*>(a.frontier),
-          static_cast<const int8_t*>(a.alive),
-          static_cast<const float*>(a.init), static_cast<float*>(a.y), a.rows,
-          a.width, a.num_vertices, a.k, a.group, a.neutral, a.identity);
+  const unsigned chunks = static_cast<unsigned>((a.k + KC - 1) / KC);
+  const float* x = static_cast<const float*>(a.x);
+  const IdT* idx = static_cast<const IdT*>(a.idx);
+  const int32_t* deg = static_cast<const int32_t*>(a.deg);
+  const float* w = static_cast<const float*>(a.w);
+  const int8_t* frontier = static_cast<const int8_t*>(a.frontier);
+  const int8_t* alive = static_cast<const int8_t*>(a.alive);
+  const float* init = static_cast<const float*>(a.init);
+  float* y = static_cast<float*>(a.y);
+  if (a.group != kThreads) {
+    const int64_t threads = a.rows * a.group;
+    const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+                    chunks);
+    if (a.width <= kBatchAbove * a.group) {
+      edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, 1>
+          <<<grid, kThreads, 0, a.stream>>>(
+              x, idx, deg, w, frontier, alive, init, y, a.rows, a.width,
+              a.num_vertices, a.k, a.group, a.neutral, a.identity);
+    } else {
+      edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, kUnroll<KC>>
+          <<<grid, kThreads, 0, a.stream>>>(
+              x, idx, deg, w, frontier, alive, init, y, a.rows, a.width,
+              a.num_vertices, a.k, a.group, a.neutral, a.identity);
+    }
+    return cudaGetLastError();
+  }
+  const int32_t* segs = static_cast<const int32_t*>(a.segs);
+  float* partial = static_cast<float*>(a.partial);
+  const int64_t per_row = (a.width + a.chunk - 1) / a.chunk;
+  const int64_t blocks = segs == nullptr ? a.rows * per_row : a.num_segs;
+  if (blocks == 0) return cudaSuccess;
+  edge_map_block_kernel<RED, IdT, WMODE, FMODE, ALIVE, KC>
+      <<<dim3(static_cast<unsigned>(blocks), chunks), kThreads, 0,
+         a.stream>>>(x, idx, deg, w, frontier, alive, segs, per_row, a.chunk,
+                     partial, a.rows, a.width, a.num_vertices, a.k, a.neutral,
+                     a.identity);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t threads = (segs == nullptr ? a.rows : a.num_segs) * a.k;
+  fold_kernel<RED, INIT>
+      <<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads,
+         0, a.stream>>>(segs, a.num_segs, per_row, partial, deg, init, y,
+                        a.rows, a.width, a.k, a.identity);
   return cudaGetLastError();
 }
 
@@ -223,22 +448,34 @@ cudaError_t pick3(int m, F&& f) {
 #define K5_ENTRY k5_edge_map_max
 #endif
 
-// idx_bytes: 2 (uint16 ids) or 4 (int32 ids).  Pointers that a mode does not
-// read may be null.  Returns a cudaError_t (0 on success).
+// idx_bytes: 2 (uint16 ids) or 4 (int32 ids).  group: lanes per row, 8,
+// 16, 32 or 256; 256 takes the two-launch split, over segs (num_segs int32
+// (row, lane_begin, lane_end) triples sorted by row, each row's in lane
+// order from lane 0, together covering [0, deg) of every row) or, when segs
+// is null, over every row's width cut every `chunk` lanes; partial is then
+// float scratch of (num_segs, or rows * ceil(width / chunk)) * k.  Pointers
+// that a mode does not read may be null.  Returns a cudaError_t (0 on
+// success).
 extern "C" int K5_ENTRY(const void* x, const void* idx, int idx_bytes,
                         const void* deg, const void* w, int wmode,
                         const void* frontier, int fmode, const void* alive,
-                        const void* init, void* y, int64_t rows, int64_t width,
-                        int64_t num_vertices, int k, int group, float neutral,
-                        float identity, void* stream) {
+                        const void* init, void* y, const void* segs,
+                        int64_t num_segs, int64_t chunk, void* partial,
+                        int64_t rows, int64_t width, int64_t num_vertices,
+                        int k, int group, float neutral, float identity,
+                        void* stream) {
   if ((idx_bytes != 2 && idx_bytes != 4) || k < 1 ||
-      (group != 8 && group != 16 && group != 32) || rows < 0 || width < 1) {
+      (group != 8 && group != 16 && group != 32 && group != kThreads) ||
+      rows < 0 || width < 1 ||
+      (group == kThreads && (num_segs < 0 || chunk < 1 ||
+                             partial == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0) return 0;
-  const Args a{x,    idx,   deg,  w,    frontier,     alive, init,    y,
-               rows, width, num_vertices, k, group, neutral, identity,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{x,     idx,      deg,   w,       frontier, alive,
+               init,  y,        segs,  num_segs, chunk,   partial,
+               rows,  width,    num_vertices,   k,        group,
+               neutral, identity, static_cast<cudaStream_t>(stream)};
   const cudaError_t err = pick_bool(idx_bytes == 2, [&](auto u16) {
     using IdT = std::conditional_t<decltype(u16)::value, uint16_t, int32_t>;
     return pick3(wmode, [&](auto wm) {

@@ -31,10 +31,12 @@ from typing import Dict, Optional
 
 import torch
 
-from .._wrap import require
+from .._wrap import (SEGMENT_LANES, lanes_per_row, require, row_segments,
+                     split_scratch_rows)
 
-__all__ = ["REDUCE_IDENTITY", "reduce_identity", "edge_map_tile_bytes",
-           "ell_edge_map", "load_kernels"]
+__all__ = ["REDUCE_IDENTITY", "SEGMENT_LANES", "reduce_identity",
+           "edge_map_tile_bytes", "row_segments", "ell_edge_map",
+           "load_kernels"]
 
 REDUCE_IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
 
@@ -89,7 +91,7 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
                         ctypes.c_float)
     for red, lib in libs.items():
         fn = getattr(lib, f"k5_edge_map_{red}")
-        fn.argtypes = [p, p, i32, p, p, i32, p, i32, p, p, p,
+        fn.argtypes = [p, p, i32, p, p, i32, p, i32, p, p, p, p, i64, i64, p,
                        i64, i64, i64, i32, i32, f32, f32, p]
         fn.restype = ctypes.c_int
         _KERNELS[red] = fn
@@ -117,6 +119,7 @@ def ell_edge_map(
     init_rows: Optional[torch.Tensor] = None,
     neutral: float = 0.0,
     identity: Optional[float] = None,
+    segments: Optional[torch.Tensor] = None,
     row_tile: int = 64,
     width_tile: int = 128,
 ) -> torch.Tensor:
@@ -129,8 +132,17 @@ def ell_edge_map(
     or (V, K); ``alive`` int8 (R, W); ``init_rows`` float32 (R,) or (R, K).
     Every id must be < V.
 
-    CUDA tensors launch the K5 kernel (and count one launch in
-    ``ell_edge_map.launches``); CPU tensors take the plain PyTorch version.
+    A tile wider than 1,024 lanes takes a 256-thread block per piece of a
+    row and a second launch that folds each row's pieces: ``segments``
+    (S, 3) int32, the tile's ``row_segments(deg)`` (``EllTileGroup.segments``,
+    built with the tiles), cuts each row at every ``SEGMENT_LANES`` of its
+    degree; without it each row's width is cut at the same points, and the
+    pieces past its degree walk nothing.  Either way the function is the
+    same.
+
+    CUDA tensors launch the K5 kernel (and count its launches in
+    ``ell_edge_map.launches``: one, or two for a wide tile); CPU tensors
+    take the plain PyTorch version.
     """
     if reduce not in REDUCE_IDENTITY:
         raise ValueError(reduce)
@@ -176,11 +188,21 @@ def ell_edge_map(
         require(init_rows, "init_rows", torch.float32, row_shape, dev)
     if v == 0:
         raise ValueError("x is empty")
+    group = lanes_per_row(width)
+    partial = None
+    if group == 256:
+        if segments is not None:
+            require(segments, "segments", torch.int32,
+                    (segments.shape[0], 3), dev)
+        partial = torch.empty((split_scratch_rows(segments, r, width), k),
+                              dtype=torch.float32, device=dev)
+    elif segments is not None:
+        raise ValueError(f"a ({r}, {width}) tile is narrow: segments split "
+                         "only rows wider than 1,024 lanes")
 
     y = torch.empty(row_shape, dtype=torch.float32, device=dev)
     fn = load_kernels()[reduce]
     wmode = 2 if w is not None else (1 if unit_weights else 0)
-    group = 8 if width <= 8 else (16 if width <= 16 else 32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -189,11 +211,14 @@ def ell_edge_map(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), idx.data_ptr(), idx.element_size(),
                  deg.data_ptr(), ptr(w), wmode, ptr(frontier), fmode,
-                 ptr(alive), ptr(init_rows), y.data_ptr(), r, width, v, k,
-                 group, float(neutral), float(identity), stream)
+                 ptr(alive), ptr(init_rows), y.data_ptr(), ptr(segments),
+                 0 if segments is None else segments.shape[0], SEGMENT_LANES,
+                 ptr(partial), r, width, v, k, group, float(neutral),
+                 float(identity), stream)
     if err != 0:
         raise RuntimeError(f"K5 edge-map launch failed: cudaError {err}")
-    ell_edge_map.launches += 1
+    # a wide tile is two launches: the pieces' blocks, then the fold
+    ell_edge_map.launches += 2 if group == 256 else 1
     return y
 
 

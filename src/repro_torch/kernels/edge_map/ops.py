@@ -21,6 +21,7 @@ import torch
 
 from ...device import resolve_device
 from ...graph import csr as csr_mod
+from .._wrap import class_segments
 from .edge_map import REDUCE_IDENTITY, edge_map_tile_bytes, ell_edge_map
 
 __all__ = [
@@ -39,6 +40,10 @@ class EllTileGroup(NamedTuple):
     ``deg``   (R_pad,) int32 true degrees (0 for padding rows)
     ``w``     optional (R_pad, W_pad) float32 additive weights
     ``alive`` optional (R_pad, W_pad) int8 tombstone mask
+    ``segments`` optional (S, 3) int32 ``(row, lane_begin, lane_end)`` list
+              that splits the rows of a class wider than 1,024 lanes across
+              K5's blocks (``_wrap.class_segments``); ``None`` for narrow
+              classes
     """
 
     rows: torch.Tensor
@@ -46,6 +51,7 @@ class EllTileGroup(NamedTuple):
     deg: torch.Tensor
     w: Optional[torch.Tensor] = None
     alive: Optional[torch.Tensor] = None
+    segments: Optional[torch.Tensor] = None
 
     @property
     def num_rows(self) -> int:
@@ -154,6 +160,7 @@ def ell_tiles(
             deg=torch.from_numpy(deg_arr).to(device),
             w=None if w is None else torch.from_numpy(w).to(device),
             alive=None if alive is None else torch.from_numpy(alive).to(device),
+            segments=class_segments(deg_arr, w_pad, device),
         ))
     return tuple(out)
 
@@ -220,6 +227,7 @@ def fused_edge_map(
             init_rows=init_rows,
             neutral=neutral,
             identity=identity,
+            segments=t.segments,
             row_tile=_tile_of(r_pad, row_tile),
             width_tile=_tile_of(w_pad, width_tile),
         )
@@ -235,6 +243,7 @@ def fused_edge_map(
             alive=t.alive,
             neutral=neutral,
             identity=identity,
+            segments=t.segments,
             row_tile=_tile_of(r_pad, row_tile),
             width_tile=_tile_of(w_pad, width_tile),
         )

@@ -29,6 +29,7 @@ import torch
 
 from ..apps.engine import FusedEdgeMaps
 from ..device import resolve_device, to_device
+from ..kernels._wrap import class_segments
 from ..kernels.edge_map.ops import EllTileGroup, _pad_dim, _round_up, ell_tiles
 from .layout import PackedAdjacency, PackedGraph
 
@@ -144,11 +145,15 @@ def _hot_tiles(adj: PackedAdjacency, row_tile: int, width_tile: int,
 
     A slot table is already an ELL plane: rows padded to the group stride,
     minimal-width ids, per-row true degree.  Only the tile-granularity zero
-    padding is added here (the reference's ``_pad_dim`` geometry), and the
-    ids go to K5 at a width it reads (``_k5_ids``).
+    padding is added here (the reference's ``_pad_dim`` geometry), the
+    ids go to K5 at a width it reads (``_k5_ids``), and a wide table gets
+    K5's segment list (``class_segments``).
     """
     return tuple(EllTileGroup(rows=to_device(h.rows, device, np.int64),
-                              idx=idx, deg=deg, w=w)
+                              idx=idx, deg=deg, w=w,
+                              segments=class_segments(
+                                  np.pad(h.deg, (0, idx.shape[0] - h.num_rows)),
+                                  idx.shape[1], device))
                  for h, idx, deg, w in hot_planes(
                      adj, device=device, row_tile=row_tile,
                      width_tile=width_tile, pad=_pad_dim, id_view=_k5_ids))

@@ -4,8 +4,9 @@
 The port's plain ``ell_spmv_ref`` — what ``ell_spmv`` runs for CPU tensors —
 is held to the TPU kernel ``ell_spmv_pallas`` in interpret mode; the
 vectorised ``ell_pack_groups`` must give the reference loop's arrays
-bitwise; ``dbg_spmv`` runs on the reference's own groups (carried across by
-``convert.ell_groups_from_numpy``).  Sums agree within 2e-6 · (1 + max|y|),
+bitwise, plus each row's true degree; ``dbg_spmv`` runs on the reference's
+own groups (carried across by ``convert.ell_groups_from_numpy``, no degrees:
+every lane is read) and on the port's (with degrees: only the real lanes).  Sums agree within 2e-6 · (1 + max|y|),
 the reference's band for a sum in another association.
 """
 import functools
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro.apps import to_arrays as ref_to_arrays  # noqa: E402
 from repro.core.reorder import dbg_spec, reorder_graph  # noqa: E402
+from repro.graph import csr as ref_csr  # noqa: E402
 from repro.graph import datasets as ref_datasets  # noqa: E402
 from repro.kernels.csr_spmv import ops as ref_ops  # noqa: E402
 from repro.kernels.csr_spmv.csr_spmv import ell_spmv_pallas  # noqa: E402
@@ -67,6 +69,15 @@ def test_padding_is_read_so_a_non_finite_x0_propagates():
                    torch.from_numpy(wgt), row_tile=2, width_tile=4).numpy()
     assert np.isnan(want[0]) and np.isnan(got[0])
     assert want[1] == got[1] == 9.0
+    # With the degrees, the padded row's one x[0] * 0 term keeps it NaN; the
+    # full row reads no padding and stays finite.
+    deg = torch.tensor([2, 4], dtype=torch.int32)
+    for y in (ell_spmv(torch.from_numpy(x), torch.from_numpy(idx),
+                       torch.from_numpy(wgt), deg=deg, row_tile=2,
+                       width_tile=4).numpy(),
+              ell_spmv_ref(torch.from_numpy(x), torch.from_numpy(idx),
+                           torch.from_numpy(wgt), deg=deg).numpy()):
+        assert np.isnan(y[0]) and y[1] == 9.0
 
 
 def test_ell_spmv_wrapper_checks():
@@ -84,8 +95,14 @@ def test_ell_spmv_wrapper_checks():
 
 @functools.lru_cache(maxsize=None)
 def _graph(key, weighted):
-    g = (ref_datasets.load_weighted if weighted else ref_datasets.load)(
-        key, "test")
+    if key == "hub":  # in-degrees up to ~10^4: a group wider than 1,024 lanes
+        rng = np.random.default_rng(11)
+        src = rng.integers(0, 20_000, 40_000)
+        dst = np.minimum(rng.zipf(1.6, 40_000) - 1, 19_999)
+        g = ref_csr.from_edges(src, dst, 20_000, name="hub")
+    else:
+        g = (ref_datasets.load_weighted if weighted else ref_datasets.load)(
+            key, "test")
     g2, _ = reorder_graph(g, "dbg", degree_source="in")
     return g2
 
@@ -97,7 +114,7 @@ def _port_graph(g):
 
 
 @pytest.mark.parametrize("geometry", [(64, 128), (8, 16)])
-@pytest.mark.parametrize("key", ["wl", "kr", "road", "kr_w"])
+@pytest.mark.parametrize("key", ["wl", "kr", "road", "kr_w", "hub"])
 def test_ell_pack_groups_bitwise(key, geometry):
     rt, wt = geometry
     g = _graph(key.removesuffix("_w"), key.endswith("_w"))
@@ -112,6 +129,67 @@ def test_ell_pack_groups_bitwise(key, geometry):
         for ra, pb in ((a.idx, b.idx), (a.w, b.w)):
             assert ra.dtype == pb.numpy().dtype
             np.testing.assert_array_equal(ra, pb.numpy())
+
+
+@pytest.mark.parametrize("geometry", [(64, 128), (8, 16)])
+@pytest.mark.parametrize("key", ["kr", "lj", "road", "kr_w", "hub"])
+def test_ell_pack_groups_keep_true_degrees(key, geometry):
+    """``deg`` is each row's in-CSR degree, 0 on padding rows, and every
+    lane at or past it is (0, 0.0): what K1's degree walk relies on.  A
+    group whose longest row passes 1,024 lanes carries its segment list:
+    each row's [0, deg) once, in order, in pieces of SEGMENT_LANES at
+    most."""
+    from repro_torch.kernels.edge_map import SEGMENT_LANES, row_segments
+
+    rt, wt = geometry
+    g = _graph(key.removesuffix("_w"), key.endswith("_w"))
+    bounds = dbg_spec(max(1.0, g.in_degrees().mean())).boundaries
+    in_deg = g.in_csr.degrees()
+    wide = 0
+    for gr in ell_pack_groups(_port_graph(g), bounds, row_tile=rt,
+                              width_tile=wt, device="cpu"):
+        r_pad, w_pad = gr.idx.shape
+        assert gr.deg.dtype == torch.int32 and gr.deg.shape == (r_pad,)
+        d = gr.deg.numpy()
+        np.testing.assert_array_equal(d[: gr.num_rows],
+                                      in_deg[gr.rows.numpy()])
+        np.testing.assert_array_equal(d[gr.num_rows:], 0)
+        pad = np.arange(w_pad)[None, :] >= d[:, None]
+        assert not gr.idx.numpy()[pad].any() and not gr.w.numpy()[pad].any()
+        assert gr.max_deg == d.max()
+        if gr.max_deg <= 1024:
+            assert gr.segments is None
+            continue
+        wide += 1
+        seg = gr.segments.numpy()
+        np.testing.assert_array_equal(seg, row_segments(d))
+        row, lo, hi = seg.T.astype(np.int64)
+        np.testing.assert_array_equal(np.bincount(row, hi - lo, r_pad), d)
+        assert np.all(np.diff(row) >= 0) and np.all(hi - lo <= SEGMENT_LANES)
+        assert np.all(lo[1:][row[1:] == row[:-1]]
+                      == hi[:-1][row[1:] == row[:-1]])
+    assert (wide > 0) == (key == "hub")
+
+
+@pytest.mark.parametrize("key", ["kr", "lj", "road"])
+def test_ell_spmv_with_degrees_matches_every_lane_and_pallas(key):
+    """The degree walk's plain version against the every-lane path and the
+    TPU kernel (interpret mode) on the same DBG groups."""
+    g = _graph(key, False)
+    bounds = dbg_spec(max(1.0, g.in_degrees().mean())).boundaries
+    x = np.random.default_rng(7).normal(size=g.num_vertices).astype(np.float32)
+    xt = torch.from_numpy(x)
+    for gr in ell_pack_groups(_port_graph(g), bounds, row_tile=64,
+                              width_tile=128, device="cpu"):
+        got = ell_spmv(xt, gr.idx, gr.w, deg=gr.deg, row_tile=64,
+                       width_tile=128)
+        np.testing.assert_array_equal(
+            got.numpy(), ell_spmv_ref(xt, gr.idx, gr.w, deg=gr.deg).numpy())
+        _close(ell_spmv_ref(xt, gr.idx, gr.w).numpy(), got)
+        want = ell_spmv_pallas(jnp.asarray(x), jnp.asarray(gr.idx.numpy()),
+                               jnp.asarray(gr.w.numpy()), row_tile=64,
+                               width_tile=128)
+        _close(want, got)
 
 
 @pytest.mark.parametrize("key", ["wl", "kr", "kr_w"])
@@ -137,3 +215,25 @@ def test_dbg_spmv_matches_reference_and_csr_oracle(key):
                                torch.from_numpy(c.indptr), w)
     _close(oracle, port_oracle)
     _close(port_oracle, got)
+
+
+@pytest.mark.parametrize("key", ["wl", "kr", "kr_w"])
+def test_dbg_spmv_with_degrees_matches_reference_and_csr_oracle(key):
+    """``dbg_spmv`` on the port's own groups, which keep their degrees."""
+    g = _graph(key.removesuffix("_w"), key.endswith("_w"))
+    bounds = dbg_spec(max(1.0, g.in_degrees().mean())).boundaries
+    ref_groups = ref_ops.ell_pack_groups(g, bounds, row_tile=64, width_tile=128)
+    groups = ell_pack_groups(_port_graph(g), bounds, row_tile=64,
+                             width_tile=128, device="cpu")
+    assert all(gr.deg is not None for gr in groups)
+    x = np.random.default_rng(2).normal(size=g.num_vertices).astype(np.float32)
+    want = ref_ops.dbg_spmv(jnp.asarray(x), ref_groups, g.num_vertices,
+                            row_tile=64, width_tile=128)
+    got = dbg_spmv(torch.from_numpy(x), groups, g.num_vertices, row_tile=64,
+                   width_tile=128)
+    _close(want, got)
+    c = g.in_csr
+    w = (torch.from_numpy(c.weights) if c.weights is not None
+         else torch.ones(c.num_edges))
+    _close(csr_spmv_ref(torch.from_numpy(x), torch.from_numpy(c.indices),
+                        torch.from_numpy(c.indptr), w), got)

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card (marked ``cuda``; skips without a card):
-K5, K4, K1, hist_bin and K2 against their plain versions, the apps on
+K5 (narrow classes, and rows wider than 1,024 lanes by block and split
+across blocks), K4, K1 (every lane, and only the real ones), hist_bin and
+K2 against their plain versions, the apps on
 ``ell`` and ``packed`` against ``flat``, the LM's greedy decode on the card
 against the CPU, and the wrappers raising rather than falling back.
 
@@ -109,6 +111,74 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
                      width_tile=8)
 
 
+def _wide_tile(cuda, v, dtype, seed):
+    """Rows of 1,025, 4,097 and 70,000 lanes (and shorter ones, an empty
+    one, and padding rows) in one class wider than 1,024 lanes."""
+    from repro_torch.device import to_device
+
+    rng = np.random.default_rng(seed)
+    degs = np.array([1025, 4097, 70_000, 0, 5, 8192, 4096, 1], np.int64)
+    r, width = 16, 70_016
+    idx = np.zeros((r, width), dtype)
+    for i, d in enumerate(degs):
+        idx[i, :d] = rng.integers(0, v, d)
+    deg = np.zeros(r, np.int32)
+    deg[: degs.size] = degs
+    return to_device(idx, cuda), to_device(deg, cuda), deg
+
+
+@pytest.mark.parametrize("dtype,v", [(np.uint16, 60_000), (np.int32, 80_000)])
+def test_wide_rows_match_plain_version_on_every_variant(cuda, dtype, v):
+    """The hub-class path (a 256-thread block per piece of a row, then the
+    fold) against the plain version on every variant: with the class's
+    segment list, with none (each row's width cut at the same points), and
+    with one segment per row; two calls bitwise equal."""
+    from repro_torch.kernels.edge_map import (ell_edge_map, ell_edge_map_ref,
+                                              row_segments)
+
+    idx, deg, deg_host = _wide_tile(cuda, v, dtype, seed=4)
+    r, width = idx.shape
+    segs = torch.from_numpy(row_segments(deg_host)).to(cuda)
+    whole = torch.from_numpy(row_segments(deg_host, width)).to(cuda)
+    assert int(segs.shape[0]) > r and int(whole.shape[0]) == r
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=cuda)
+
+    xs = {1: rand(v), 8: rand(v, 8)}
+    frs = {"shared": (rand(v) < .5).to(torch.int8),
+           "planar": (rand(v, 8) < .5).to(torch.int8)}
+    w, alive = rand(r, width), (rand(r, width) < .8).to(torch.int8)
+    before = ell_edge_map.launches
+    calls = 0
+    for reduce, weight, fr, al, init, k in itertools.product(
+            ("sum", "min", "max"), ("none", "unit", "plane"),
+            ("none", "shared", "planar"), (False, True), (False, True), (1, 8)):
+        if fr == "planar" and k == 1:
+            continue
+        kw = dict(reduce=reduce, w=w if weight == "plane" else None,
+                  unit_weights=weight == "unit",
+                  frontier=None if fr == "none" else frs[fr],
+                  alive=alive if al else None,
+                  init_rows=(rand(r, k) if k > 1 else rand(r)) if init else None,
+                  neutral={"sum": 0.0, "min": float("inf"),
+                           "max": float("-inf")}[reduce])
+        want = ell_edge_map_ref(xs[k], idx, deg, **kw)
+        for seg in (segs, None, whole):
+            got, again = (ell_edge_map(xs[k], idx, deg, segments=seg,
+                                       row_tile=r, width_tile=width, **kw)
+                          for _ in range(2))
+            calls += 2
+            assert torch.equal(got, again)
+            if reduce == "sum":
+                _close(got, want)
+            else:
+                assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert ell_edge_map.launches - before == 2 * calls  # pieces, then fold
+
+
 # ------------------------------------------------- K4, K1, hist_bin, packed
 def _close(got, want):
     scale = 1.0 + float(want[torch.isfinite(want)].abs().max())
@@ -155,7 +225,51 @@ def test_ell_spmv_matches_plain_version(cuda):
                  width_tile=8)
     assert bool(torch.isnan(y).all())
     torch.cuda.synchronize()
-    assert ell_spmv.launches == before + 5
+    assert ell_spmv.launches == before + 6  # the 4096-lane plane is split: 2
+
+
+def test_ell_spmv_with_degrees_matches_every_lane_and_plain(cuda):
+    """K1 reading only lanes < deg against the every-lane path (bitwise on a
+    finite x) and the plain version, wide planes split with and without a
+    segment list; with a non-finite x[0] the padded rows are NaN on both
+    paths and a full row, where there is one, is not."""
+    from repro_torch.kernels.csr_spmv import ell_spmv, ell_spmv_ref
+    from repro_torch.kernels.edge_map import row_segments
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random(5000).astype(np.float32)).to(cuda)
+    before, launches = ell_spmv.launches, 0
+    # (rows, width, longest row): short rows in a wider plane walk fewer
+    # lanes per thread (the last DBG group; a 512-lane group of <= 100)
+    for r, w, cap in ((64, 8, 8), (64, 16, 16), (128, 512, 512),
+                      (256, 128, 9), (64, 512, 100), (16, 4096, 4096),
+                      (8, 20_480, 20_480)):
+        d = np.minimum(rng.integers(0, w + 1, r), cap)
+        d[0] = cap  # the longest row: a full one where cap == w
+        lane = np.arange(w)[None, :] < d[:, None]
+        idx_np = np.where(lane, rng.integers(1, 5000, (r, w)), 0)
+        w_np = np.where(lane, rng.random((r, w)), 0.0)
+        idx = torch.from_numpy(idx_np.astype(np.int32)).to(cuda)
+        wt = torch.from_numpy(w_np.astype(np.float32)).to(cuda)
+        deg = torch.from_numpy(d.astype(np.int32)).to(cuda)
+        wide = w > 1024
+        segs = torch.from_numpy(row_segments(d)).to(cuda) if wide else None
+        walks = [dict(deg=deg, max_deg=int(d.max()), segments=segs),
+                 dict(deg=deg)]
+        every = ell_spmv(x, idx, wt, row_tile=r, width_tile=w)
+        for kw in walks:
+            got = ell_spmv(x, idx, wt, row_tile=r, width_tile=w, **kw)
+            assert torch.equal(got, every)
+            _close(got, ell_spmv_ref(x, idx, wt, deg=deg))
+        xi = x.clone()
+        xi[0] = float("inf")
+        for y in (ell_spmv(xi, idx, wt, row_tile=r, width_tile=w, **walks[0]),
+                  ell_spmv(xi, idx, wt, row_tile=r, width_tile=w),
+                  ell_spmv_ref(xi, idx, wt, deg=deg)):
+            assert torch.equal(torch.isnan(y), torch.from_numpy(d < w).to(cuda))
+        launches += 5 * (2 if wide else 1)
+    torch.cuda.synchronize()
+    assert ell_spmv.launches == before + launches
 
 
 def test_hist_bin_and_dbg_bin_match_plain_and_host(cuda):

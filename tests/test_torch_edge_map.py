@@ -96,6 +96,42 @@ def test_ell_tiles_bitwise(name, geometry):
                                     frontier_planar=True))
 
 
+@pytest.mark.parametrize("geometry", [(64, 128), (8, 16)])
+@pytest.mark.parametrize("name", ["kr", "road", "wide"])
+def test_ell_tiles_segment_lists_cover_each_row_once(name, geometry):
+    """A class wider than 1,024 lanes carries K5's segment list: every row's
+    lanes [0, deg) (padding rows included) exactly once, rows in order, each
+    row's pieces in lane order from lane 0, none longer than SEGMENT_LANES;
+    narrower classes carry none."""
+    from repro_torch.kernels.edge_map import SEGMENT_LANES
+
+    row_tile, width_tile = geometry
+    g = _graph(name)
+    bounds = dbg_spec(max(1.0, float(g.in_csr.degrees().mean()))).boundaries
+    tiles = ops.ell_tiles(_port_graph(g).in_csr, bounds, row_tile=row_tile,
+                          width_tile=width_tile, device="cpu")
+    wide = 0
+    for t in tiles:
+        r_pad, w_pad = t.idx.shape
+        if w_pad <= 1024:
+            assert t.segments is None
+            continue
+        wide += 1
+        seg = t.segments.numpy()
+        assert seg.dtype == np.int32 and seg.shape[1] == 3
+        row, lo, hi = seg.T.astype(np.int64)
+        np.testing.assert_array_equal(np.unique(row), np.arange(r_pad))
+        assert np.all(np.diff(row) >= 0)
+        first = np.r_[True, row[1:] != row[:-1]]
+        np.testing.assert_array_equal(lo[first], 0)
+        np.testing.assert_array_equal(lo[~first], hi[np.flatnonzero(~first) - 1])
+        last = np.r_[row[1:] != row[:-1], True]
+        np.testing.assert_array_equal(hi[last], t.deg.numpy()[row[last]])
+        assert np.all(hi - lo <= SEGMENT_LANES) and np.all(hi >= lo)
+        assert np.any(hi - lo == 0) == np.any(t.deg.numpy() == 0)
+    assert wide == (name == "wide")
+
+
 def test_pad_and_id_width_rules():
     for n in (0, 1, 7, 8, 9, 63, 64, 65, 127, 128, 129, 1000):
         for tile in (8, 64, 128):
