@@ -10,7 +10,8 @@ use.  It imports nothing of JAX and nothing of the JAX package ``repro``.
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit from ``nvidia-smi``;
   2. build: compile (or load) the libraries of all five kernels — K5, K4,
-     K1, hist_bin and K2 — with every ``nvcc`` started together;
+     K1, hist_bin and K2 — and the two ``NARROW_BUILDS`` of K5's sum, with
+     every ``nvcc`` started together;
   3. K5 vs its plain version on the card, over every static variant, on all
      rows of every tile class of the ``kr`` registry graph at ``small`` scale
      (uint16 ids) and of the main-path graph (int32 ids), a class wider
@@ -24,8 +25,13 @@ Phases (any failure raises, and the script exits non-zero):
      card; K5's launch count must grow in every app;
   5. times at the main path's PageRank pull: K5, its plain version, one
      library call (cuSPARSE SpMV through ``torch.sparse``) and the bound;
-     K5 per tile class with its lanes per row (the hub class named), and on
-     the hub class the split against a block per row and other chunks;
+     K5 per tile class (device time alone, the host's issue time hidden
+     behind a device sleep) with its lanes per row and its launches (two for a
+     class wider than 1,024 lanes: pieces, then the fold; the hub class
+     named); on the hub class the split against a block per whole row, and
+     on each narrower class the kept narrow kernel against two builds of
+     K5's sum that batch every thread's loads and none (``NARROW_BUILDS``),
+     the three bitwise equal;
   6. the packed path on the same graphs: ``backend="packed"`` (hot slot
      tables + decoded cold tiles) for the five apps against ``flat``,
      ``pack_spmv`` (K4) and ``dbg_spmv`` (K1) against the flat pull and the
@@ -74,6 +80,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -82,7 +89,10 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 LOG2_VERTICES = 21         # main-path graph: 2,097,152 vertices
 REPS = 20                  # timed calls per measurement (median)
 PLAIN_CHUNK_LANES = 1 << 24  # rows per plain-version call, in lanes
-SEGMENT_SWEEP = (1024, 2048, 8192, 16384)  # other K5 split chunks timed
+SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of a device-only time
+# K5's sum built with the narrow kernel's batch threshold forced (phase 5)
+NARROW_BUILDS = {"batched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=0"],
+                 "unbatched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=32"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
@@ -382,8 +392,12 @@ def _compare_app(name, eo, fo):
 
 
 # ---------------------------------------------------------------- phase 5
-def _events_ms(fn, reps):
-    """Median over ``reps`` calls of the device time of ``fn()``."""
+def _events_ms(fn, reps, device_only=False):
+    """Median over ``reps`` calls of the time between two events around
+    ``fn()``.  From an idle device that includes the host's time to issue
+    ``fn``'s launches; with ``device_only`` the device first sleeps
+    (``SLEEP_CYCLES``) while the host issues them, so the time is the
+    device's alone."""
     import statistics
 
     import torch
@@ -394,6 +408,8 @@ def _events_ms(fn, reps):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -402,7 +418,21 @@ def _events_ms(fn, reps):
     return statistics.median(times)
 
 
-def time_pull(flat, ell, reps):
+def _with_k5_sum(lib, fn):
+    """``fn()`` with K5's sum entry taken from ``lib`` (one of
+    ``NARROW_BUILDS``), then the kept library's entry back."""
+    from importlib import import_module
+
+    em = import_module("repro_torch.kernels.edge_map.edge_map")
+    kept = em.load_kernels()["sum"]
+    em._bind({"sum": lib})
+    try:
+        return fn()
+    finally:
+        em._KERNELS["sum"] = kept
+
+
+def time_pull(flat, ell, reps, narrow_builds):
     """K5, its plain version and cuSPARSE at the PageRank pull of the main
     path (DBG ordering): one full edge map each."""
     import torch
@@ -438,6 +468,7 @@ def time_pull(flat, ell, reps):
         err = max(err, _assert_close(a, b, "sum", "timed pull vs plain"))
 
     ms = _events_ms(kernels, reps)
+    device_ms = _events_ms(kernels, reps, True)
     fused_ms = _events_ms(lambda: fused_edge_map(tiles, x, v, reduce="sum"),
                           reps)
     plain_ms = _events_ms(plain, reps)
@@ -446,26 +477,36 @@ def time_pull(flat, ell, reps):
         r, w = t.idx.shape
         edges = int(t.deg.sum())
         share = (edges * t.idx.element_size() + r * 8) / HBM_BYTES_PER_S * 1e3
+        n0 = _ell_launches()
+        kept = call(t, t.segments)
+        launches = _ell_launches() - n0
+        # what the wrapper launched: the split's two kernels above 1,024
+        # lanes (a block per piece of a row, then the fold), one below
+        if launches != (2 if w > 1024 else 1):
+            raise AssertionError(f"class {(r, w)}: {launches} K5 launches")
+        group = lanes_per_row(w)
         c = dict(shape=(r, w), dtype=str(t.idx.dtype).replace("torch.", ""),
-                 edges=edges, max_deg=int(t.deg.max()),
-                 group=lanes_per_row(w), bound_share_ms=share,
+                 edges=edges, max_deg=int(t.deg.max()), group=group,
+                 launches=launches, bound_share_ms=share,
                  segments=None if t.segments is None else int(t.segments.shape[0]),
-                 ms=_events_ms(lambda t=t: call(t, t.segments), reps))
+                 ms=_events_ms(lambda t=t: call(t, t.segments), reps, True))
         if t.segments is not None:
-            # The wide class's other walks, on the same inputs: a block per
-            # whole row (one segment per row), the width cut every
-            # SEGMENT_LANES with no list, and the list at other chunks.
-            deg = t.deg.cpu().numpy()
-            whole = torch.from_numpy(row_segments(deg, w)).to(dev)
+            # the other design on the same inputs: a block per whole row
+            # (one segment per row)
+            whole = torch.from_numpy(row_segments(t.deg.cpu().numpy(), w))
+            whole = whole.to(dev)
             c["block_per_row_ms"] = _events_ms(lambda t=t: call(t, whole),
-                                               reps)
-            c["no_list_ms"] = _events_ms(lambda t=t: call(t, None), reps)
-            sweep = {}
-            for chunk in SEGMENT_SWEEP:
-                seg = torch.from_numpy(row_segments(deg, chunk)).to(dev)
-                sweep[chunk] = _events_ms(lambda t=t, seg=seg: call(t, seg),
-                                          reps)
-            c["split_ms_by_chunk"] = sweep
+                                               reps, True)
+        else:
+            c["lanes_per_thread"] = -(-w // group)
+            for name, lib in narrow_builds.items():
+                got = _with_k5_sum(lib, lambda t=t: call(t, None))
+                if not torch.equal(got, kept):
+                    raise AssertionError(f"class {(r, w)}: the {name} build "
+                                         "differs from the kept kernel")
+                c[f"{name}_ms"] = _with_k5_sum(
+                    lib, lambda t=t: _events_ms(lambda: call(t, None), reps,
+                                                True))
         per_class.append(c)
     ga = ell.ga
     with warnings.catch_warnings():  # "sparse CSR support is in beta"
@@ -486,7 +527,8 @@ def time_pull(flat, ell, reps):
     bound_ops_ms = edges / FP32_OPS_PER_S * 1e3
     padded = fused_edge_map_bytes(tiles, v)
     return dict(
-        launches_per_call=launches_per_call, ms=ms, fused_ms=fused_ms,
+        launches_per_call=launches_per_call, ms=ms, device_ms=device_ms,
+        fused_ms=fused_ms,
         plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=max(bound_bytes_ms, bound_ops_ms),
         bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
@@ -1164,8 +1206,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.reorder import dbg_spec
     from repro_torch.graph import datasets
-    from repro_torch.kernels import load_all
-    from repro_torch.kernels.edge_map import SEGMENT_LANES, ell_tiles
+    from repro_torch.kernels import _build, load_all
+    from repro_torch.kernels.edge_map import ell_tiles
+    from repro_torch.kernels.edge_map.edge_map import _SOURCE as K5_SOURCE
 
     t_start = time.perf_counter()
     # 1. device
@@ -1177,8 +1220,12 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    load_all()
-    log(f"build: K5, K4, K1, hist_bin and K2 libraries ready in "
+    with ThreadPoolExecutor(1) as pool:
+        narrow = pool.submit(_build.load_libraries, K5_SOURCE, NARROW_BUILDS)
+        load_all()
+        narrow_builds = narrow.result()
+    log(f"build: K5, K4, K1, hist_bin and K2 libraries, and K5's sum "
+        f"{' and '.join(NARROW_BUILDS)}, ready in "
         f"{time.perf_counter() - t0:.1f} s (every nvcc started together)")
 
     # 3. K5 vs plain, every static variant
@@ -1216,27 +1263,24 @@ def main() -> int:
 
     # 5. K5 times
     flat, ell = backends["dbg"]
-    t = time_pull(flat, ell, REPS)
+    t = time_pull(flat, ell, REPS, narrow_builds)
     for c in t["per_class"]:
         hub = " (the hub class)" if c["segments"] is not None else ""
         line = (f"  class {c['shape']} {c['dtype']}{hub}: {c['edges']} edges, "
-                f"longest row {c['max_deg']}, {c['group']} lanes per row")
+                f"longest row {c['max_deg']}, {c['group']} lanes per row, "
+                f"{c['launches']} launch(es)")
         if c["segments"] is not None:
             line += (f", split into {c['segments']} segments: kernel "
-                     f"{c['ms']:.4f} ms (2 launches); a block per whole row "
-                     f"{c['block_per_row_ms']:.4f} ms; no list (width cut "
-                     f"every {SEGMENT_LANES}) {c['no_list_ms']:.4f} ms; list "
-                     "by chunk " + ", ".join(
-                         f"{k}: {m:.4f}" for k, m in
-                         c["split_ms_by_chunk"].items()) + " ms")
+                     f"{c['ms']:.4f} ms; a block per whole row "
+                     f"{c['block_per_row_ms']:.4f} ms")
         else:
-            line += f": kernel {c['ms']:.4f} ms"
-        if c["shape"][1] > 1024 and c["group"] != 256:
-            raise AssertionError(f"class {c['shape']} ran with {c['group']} "
-                                 "lanes per row")
+            line += (f", {c['lanes_per_thread']} lanes per thread: kernel "
+                     f"{c['ms']:.4f} ms; " + ", ".join(
+                         f"{n} {c[n + '_ms']:.4f}" for n in NARROW_BUILDS)
+                     + " ms")
         log(line + f"; its share of the bound {c['bound_share_ms']:.4f} ms")
     log(f"timed pull: kernel {t['ms']:.4f} ms ({t['launches_per_call']} "
-        f"launches), full fused_edge_map {t['fused_ms']:.4f} ms, plain "
+        f"launches; the device's time alone {t['device_ms']:.4f} ms), full fused_edge_map {t['fused_ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, cuSPARSE {t['library_ms']:.4f} ms (max |err| "
         f"vs flat {t['library_max_abs_err']:.3g}), bound "
         f"{t['bound_ms']:.4f} ms ({t['bound_bytes']} B), padded-plane bound "

@@ -14,6 +14,7 @@ import torch
 from .configs.base import ArchConfig
 from .device import resolve_device
 from .graph.csr import CSR, Graph
+from .kernels._wrap import class_segments
 from .kernels.csr_spmv.ops import EllGroup
 from .kernels.edge_map.ops import EllTileGroup
 from .pack import codec
@@ -45,7 +46,9 @@ def tiles_from_numpy(
 ) -> Tuple[EllTileGroup, ...]:
     """``(rows, idx, deg, w, alive)`` numpy planes → ``EllTileGroup``s on
     ``device``.  ``idx`` keeps its stored width (uint16 stays
-    ``torch.uint16``); ``rows`` become int64, torch's index type."""
+    ``torch.uint16``); ``rows`` become int64, torch's index type.  A class
+    wider than 1,024 lanes gets its K5 segment list from ``deg``, as
+    ``ell_tiles`` builds it."""
     def t(a, dtype=None):
         if a is None:
             return None
@@ -57,9 +60,10 @@ def tiles_from_numpy(
         idx = np.asarray(idx)
         if idx.dtype not in (np.uint16, np.int32):
             raise TypeError(f"idx must be uint16 or int32, got {idx.dtype}")
-        out.append(EllTileGroup(rows=t(rows, np.int64), idx=t(idx),
-                                deg=t(deg, np.int32), w=t(w, np.float32),
-                                alive=t(alive, np.int8)))
+        out.append(EllTileGroup(
+            rows=t(rows, np.int64), idx=t(idx), deg=t(deg, np.int32),
+            w=t(w, np.float32), alive=t(alive, np.int8),
+            segments=class_segments(np.asarray(deg), idx.shape[1], device)))
     return tuple(out)
 
 

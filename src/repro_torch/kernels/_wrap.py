@@ -55,8 +55,9 @@ def row_segments(deg, chunk: int = SEGMENT_LANES) -> np.ndarray:
 
 
 def split_scratch_rows(segments, rows: int, width: int) -> int:
-    """Partials a wide group's split writes: one per segment of the list,
-    or, with none, one per ``SEGMENT_LANES`` piece of every row's width."""
+    """Partials K1's split of a wide group writes: one per segment of the
+    list, or, with none, one per ``SEGMENT_LANES`` piece of every row's
+    width."""
     if segments is not None:
         return int(segments.shape[0])
     return rows * -(-width // SEGMENT_LANES)

@@ -33,15 +33,16 @@
 //  * where a thread walks several lanes of its row, it keeps several lanes'
 //    loads in flight (ids, weights and alive bytes, then the frontier and
 //    x[id]) before it reduces them, in lane order, so it waits on the
-//    gather once per batch, not per lane; where it walks at most four, it
-//    keeps no batch, and the registers it saves buy occupancy;
+//    gather once per batch, not per lane; in a narrow class where it walks
+//    at most K5_BATCH_ABOVE lanes, it keeps no batch, and the registers it
+//    saves buy occupancy (PERF.md, section 6, has both kernels' times per
+//    class);
 //  * the wide path splits rows into segments of at most a few thousand
-//    lanes (row, lane_begin, lane_end; SEGMENT_LANES in edge_map.py), one
-//    block each: every block writes one partial per query lane, and a
-//    second launch folds each row's partials in segment order, so a row far
-//    longer than the rest no longer sets the class's tail (on an H100, a
-//    block per whole row took ~1.6x the split's time on the hub class of a
-//    2^21-vertex RMAT graph);
+//    lanes (row, lane_begin, lane_end; _wrap.row_segments), one block each:
+//    every block writes one partial per query lane, and a second launch
+//    folds each row's partials in segment order, so a row far longer than
+//    the rest no longer sets the class's tail (PERF.md, section 6, times it
+//    beside a block per whole row);
 //  * the ids are read at their stored width (uint16 halves the idx plane);
 //  * x is gathered through L2: after DBG the hot vertices are contiguous, and
 //    at the sizes the paper runs x fits the 50 MB L2;
@@ -53,7 +54,8 @@
 //    per thread (blockIdx.y walks chunks of KC when K > KC).
 //
 // Build: one shared library per reduction, compiled with -DK5_REDUCE=0|1|2
-// (see repro_torch/kernels/_build.py).  The C entry returns cudaGetLastError()
+// (see repro_torch/kernels/_build.py); -DK5_BATCH_ABOVE=N overrides the
+// narrow kernel's batch threshold (0: always batch, 32 or more: never).  The C entry returns cudaGetLastError()
 // after its launches; they are on the caller's stream and allocate nothing.
 #include <cuda_runtime.h>
 
@@ -62,6 +64,9 @@
 
 #ifndef K5_REDUCE
 #error "compile with -DK5_REDUCE=0 (sum), 1 (min) or 2 (max)"
+#endif
+#ifndef K5_BATCH_ABOVE
+#define K5_BATCH_ABOVE 4
 #endif
 
 namespace {
@@ -175,10 +180,14 @@ __device__ __forceinline__ void walk(
 
 // Lanes of one thread with loads in flight, where a thread walks more than
 // kBatchAbove lanes of its row; below that the warps, not a batch, keep the
-// gathers in flight, and a batch's registers would only cost occupancy.
+// gathers in flight, and a batch's registers would only cost occupancy.  A
+// narrow-kernel thread walks at most kNarrowLanes lanes (1,024 / 32), so a
+// threshold of that or more never batches, and 0 always does; only the
+// kernels a threshold can pick are compiled.
 template <int KC>
 constexpr int kUnroll = KC == 1 ? 8 : 4;
-constexpr int kBatchAbove = 4;
+constexpr int kBatchAbove = K5_BATCH_ABOVE;
+constexpr int kNarrowLanes = 1024 / 32;
 
 __device__ __forceinline__ int64_t clip_degree(const int32_t* deg, int64_t row,
                                                int64_t width) {
@@ -251,10 +260,8 @@ edge_map_kernel(const float* __restrict__ x, const IdT* __restrict__ idx,
 // Wide classes (a 256-thread block per piece of a row), in two launches.
 // edge_map_block_kernel: block b walks one segment of one row and writes its
 // partial[b, k].  The segments are segs[b] = (row, lane_begin, lane_end),
-// sorted by row, each row's in lane order from lane 0, covering [0, deg);
-// or, with segs == nullptr, every row's [0, width) cut into per_row pieces
-// of `chunk` lanes (those past deg walk nothing).  fold_kernel finishes the
-// rows.
+// sorted by row, each row's in lane order from lane 0, covering [0, deg).
+// fold_kernel finishes the rows.
 template <int RED, typename IdT, int WMODE, int FMODE, bool ALIVE, int KC>
 __global__ void __launch_bounds__(kThreads)
 edge_map_block_kernel(const float* __restrict__ x,
@@ -263,27 +270,19 @@ edge_map_block_kernel(const float* __restrict__ x,
                       const float* __restrict__ w,
                       const int8_t* __restrict__ frontier,
                       const int8_t* __restrict__ alive,
-                      const int32_t* __restrict__ segs, int64_t per_row,
-                      int64_t chunk, float* __restrict__ partial,
-                      int64_t rows, int64_t width, int64_t num_vertices,
-                      int k_total, float neutral, float identity) {
+                      const int32_t* __restrict__ segs,
+                      float* __restrict__ partial, int64_t rows,
+                      int64_t width, int64_t num_vertices, int k_total,
+                      float neutral, float identity) {
   const int k0 = blockIdx.y * KC;
-  int64_t row, lo, hi;
-  if (segs != nullptr) {
-    const int32_t* s = segs + 3 * static_cast<int64_t>(blockIdx.x);
-    row = s[0];
-    lo = s[1] < 0 ? 0 : s[1];
-    hi = s[2];
-    if (row < 0 || row >= rows) {
-      __trap();  // a segment outside the tile: a malformed list
-    }
-  } else {
-    row = blockIdx.x / per_row;
-    lo = (blockIdx.x - row * per_row) * chunk;
-    hi = lo + chunk;
+  const int32_t* s = segs + 3 * static_cast<int64_t>(blockIdx.x);
+  const int64_t row = s[0];
+  const int64_t lo = s[1] < 0 ? 0 : s[1];
+  if (row < 0 || row >= rows) {
+    __trap();  // a segment outside the tile: a malformed list
   }
   const int64_t d = clip_degree(deg, row, width);
-  hi = hi < d ? hi : d;
+  const int64_t hi = s[2] < d ? s[2] : d;
 
   float acc[KC];
 #pragma unroll
@@ -317,35 +316,27 @@ edge_map_block_kernel(const float* __restrict__ x,
   }
 }
 
-// fold_kernel: one thread per (row, query lane) with segs == nullptr (the
-// row's per_row partials), else per (segment, query lane), where the
-// thread of a row's first segment (lane_begin == 0) takes the row's
-// partials; it folds them in segment order and finishes the row.
+// fold_kernel: one thread per (segment, query lane); the thread of a row's
+// first segment (lane_begin == 0) folds the row's partials in segment order
+// and finishes the row.
 template <int RED, bool INIT>
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const int32_t* __restrict__ segs, int64_t num_segs,
-            int64_t per_row, const float* __restrict__ partial,
+            const float* __restrict__ partial,
             const int32_t* __restrict__ deg, const float* __restrict__ init,
-            float* __restrict__ y, int64_t rows, int64_t width, int k_total,
+            float* __restrict__ y, int64_t width, int k_total,
             float identity) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t s = t / k_total;
   const int k = static_cast<int>(t - s * k_total);
-  int64_t row, q, q_end;
-  if (segs == nullptr) {
-    if (s >= rows) return;
-    row = s;
-    q = s * per_row;
-    q_end = q + per_row;
-  } else {
-    if (s >= num_segs || segs[3 * s + 1] != 0) return;
-    row = segs[3 * s];
-    q = s;
-    for (q_end = s + 1; q_end < num_segs && segs[3 * q_end] == row; ++q_end) {
-    }
-  }
+  if (s >= num_segs || segs[3 * s + 1] != 0) return;
+  const int64_t row = segs[3 * s];
+  int64_t q_end = s + 1;
+  while (q_end < num_segs && segs[3 * q_end] == row) ++q_end;
   float r = lane_start<RED>();
-  for (; q < q_end; ++q) r = combine<RED>(r, partial[q * k_total + k]);
+  for (int64_t q = s; q < q_end; ++q) {
+    r = combine<RED>(r, partial[q * k_total + k]);
+  }
   finish<RED, INIT>(r, y, init, row * k_total + k,
                     clip_degree(deg, row, width), width, identity);
 }
@@ -361,7 +352,6 @@ struct Args {
   void* y;
   const void* segs;
   int64_t num_segs;
-  int64_t chunk;
   void* partial;
   int64_t rows;
   int64_t width;
@@ -389,12 +379,16 @@ cudaError_t launch(const Args& a) {
     const int64_t threads = a.rows * a.group;
     const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
                     chunks);
-    if (a.width <= kBatchAbove * a.group) {
-      edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, 1>
-          <<<grid, kThreads, 0, a.stream>>>(
-              x, idx, deg, w, frontier, alive, init, y, a.rows, a.width,
-              a.num_vertices, a.k, a.group, a.neutral, a.identity);
-    } else {
+    if constexpr (kBatchAbove > 0) {
+      if (kBatchAbove >= kNarrowLanes || a.width <= kBatchAbove * a.group) {
+        edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, 1>
+            <<<grid, kThreads, 0, a.stream>>>(
+                x, idx, deg, w, frontier, alive, init, y, a.rows, a.width,
+                a.num_vertices, a.k, a.group, a.neutral, a.identity);
+        return cudaGetLastError();
+      }
+    }
+    if constexpr (kBatchAbove < kNarrowLanes) {
       edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, kUnroll<KC>>
           <<<grid, kThreads, 0, a.stream>>>(
               x, idx, deg, w, frontier, alive, init, y, a.rows, a.width,
@@ -403,22 +397,19 @@ cudaError_t launch(const Args& a) {
     return cudaGetLastError();
   }
   const int32_t* segs = static_cast<const int32_t*>(a.segs);
-  float* partial = static_cast<float*>(a.partial);
-  const int64_t per_row = (a.width + a.chunk - 1) / a.chunk;
-  const int64_t blocks = segs == nullptr ? a.rows * per_row : a.num_segs;
-  if (blocks == 0) return cudaSuccess;
+  if (a.num_segs == 0) return cudaSuccess;
   edge_map_block_kernel<RED, IdT, WMODE, FMODE, ALIVE, KC>
-      <<<dim3(static_cast<unsigned>(blocks), chunks), kThreads, 0,
-         a.stream>>>(x, idx, deg, w, frontier, alive, segs, per_row, a.chunk,
-                     partial, a.rows, a.width, a.num_vertices, a.k, a.neutral,
-                     a.identity);
+      <<<dim3(static_cast<unsigned>(a.num_segs), chunks), kThreads, 0,
+         a.stream>>>(x, idx, deg, w, frontier, alive, segs,
+                     static_cast<float*>(a.partial), a.rows, a.width,
+                     a.num_vertices, a.k, a.neutral, a.identity);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t threads = (segs == nullptr ? a.rows : a.num_segs) * a.k;
+  const int64_t threads = a.num_segs * a.k;
   fold_kernel<RED, INIT>
       <<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads,
-         0, a.stream>>>(segs, a.num_segs, per_row, partial, deg, init, y,
-                        a.rows, a.width, a.k, a.identity);
+         0, a.stream>>>(segs, a.num_segs, static_cast<const float*>(a.partial),
+                        deg, init, y, a.width, a.k, a.identity);
   return cudaGetLastError();
 }
 
@@ -449,33 +440,30 @@ cudaError_t pick3(int m, F&& f) {
 #endif
 
 // idx_bytes: 2 (uint16 ids) or 4 (int32 ids).  group: lanes per row, 8,
-// 16, 32 or 256; 256 takes the two-launch split, over segs (num_segs int32
+// 16, 32 or 256; 256 takes the two-launch split over segs: num_segs int32
 // (row, lane_begin, lane_end) triples sorted by row, each row's in lane
-// order from lane 0, together covering [0, deg) of every row) or, when segs
-// is null, over every row's width cut every `chunk` lanes; partial is then
-// float scratch of (num_segs, or rows * ceil(width / chunk)) * k.  Pointers
-// that a mode does not read may be null.  Returns a cudaError_t (0 on
-// success).
+// order from lane 0, together covering [0, deg) of every row, with partial
+// float scratch of num_segs * k.  Pointers that a mode does not read may be
+// null.  Returns a cudaError_t (0 on success).
 extern "C" int K5_ENTRY(const void* x, const void* idx, int idx_bytes,
                         const void* deg, const void* w, int wmode,
                         const void* frontier, int fmode, const void* alive,
                         const void* init, void* y, const void* segs,
-                        int64_t num_segs, int64_t chunk, void* partial,
-                        int64_t rows, int64_t width, int64_t num_vertices,
-                        int k, int group, float neutral, float identity,
-                        void* stream) {
+                        int64_t num_segs, void* partial, int64_t rows,
+                        int64_t width, int64_t num_vertices, int k, int group,
+                        float neutral, float identity, void* stream) {
   if ((idx_bytes != 2 && idx_bytes != 4) || k < 1 ||
       (group != 8 && group != 16 && group != 32 && group != kThreads) ||
       rows < 0 || width < 1 ||
-      (group == kThreads && (num_segs < 0 || chunk < 1 ||
-                             partial == nullptr))) {
+      (group == kThreads &&
+       (segs == nullptr || num_segs < rows || partial == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0) return 0;
-  const Args a{x,     idx,      deg,   w,       frontier, alive,
-               init,  y,        segs,  num_segs, chunk,   partial,
-               rows,  width,    num_vertices,   k,        group,
-               neutral, identity, static_cast<cudaStream_t>(stream)};
+  const Args a{x,     idx,      deg,   w,        frontier, alive,
+               init,  y,        segs,  num_segs, partial,  rows,
+               width, num_vertices,    k,        group,    neutral,
+               identity, static_cast<cudaStream_t>(stream)};
   const cudaError_t err = pick_bool(idx_bytes == 2, [&](auto u16) {
     using IdT = std::conditional_t<decltype(u16)::value, uint16_t, int32_t>;
     return pick3(wmode, [&](auto wm) {

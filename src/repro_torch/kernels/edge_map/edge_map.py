@@ -31,8 +31,8 @@ from typing import Dict, Optional
 
 import torch
 
-from .._wrap import (SEGMENT_LANES, lanes_per_row, require, row_segments,
-                     split_scratch_rows)
+from .._wrap import (SEGMENT_LANES, class_segments, lanes_per_row, require,
+                     row_segments)
 
 __all__ = ["REDUCE_IDENTITY", "SEGMENT_LANES", "reduce_identity",
            "edge_map_tile_bytes", "row_segments", "ell_edge_map",
@@ -91,8 +91,8 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
                         ctypes.c_float)
     for red, lib in libs.items():
         fn = getattr(lib, f"k5_edge_map_{red}")
-        fn.argtypes = [p, p, i32, p, p, i32, p, i32, p, p, p, p, i64, i64, p,
-                       i64, i64, i64, i32, i32, f32, f32, p]
+        fn.argtypes = [p, p, i32, p, p, i32, p, i32, p, p, p, p, i64, p, i64,
+                       i64, i64, i32, i32, f32, f32, p]
         fn.restype = ctypes.c_int
         _KERNELS[red] = fn
 
@@ -136,9 +136,10 @@ def ell_edge_map(
     row and a second launch that folds each row's pieces: ``segments``
     (S, 3) int32, the tile's ``row_segments(deg)`` (``EllTileGroup.segments``,
     built with the tiles), cuts each row at every ``SEGMENT_LANES`` of its
-    degree; without it each row's width is cut at the same points, and the
-    pieces past its degree walk nothing.  Either way the function is the
-    same.
+    degree.  A caller that passes none gets that list built here from
+    ``deg`` (a copy to the host: set-up, not per-call work, so callers on a
+    hot path pass the tiles' own).  Any list that covers each row's
+    ``[0, deg)`` in order computes the same function.
 
     CUDA tensors launch the K5 kernel (and count its launches in
     ``ell_edge_map.launches``: one, or two for a wide tile); CPU tensors
@@ -191,11 +192,11 @@ def ell_edge_map(
     group = lanes_per_row(width)
     partial = None
     if group == 256:
-        if segments is not None:
-            require(segments, "segments", torch.int32,
-                    (segments.shape[0], 3), dev)
-        partial = torch.empty((split_scratch_rows(segments, r, width), k),
-                              dtype=torch.float32, device=dev)
+        if segments is None:
+            segments = class_segments(deg.cpu().numpy(), width, dev)
+        require(segments, "segments", torch.int32, (segments.shape[0], 3), dev)
+        partial = torch.empty((segments.shape[0], k), dtype=torch.float32,
+                              device=dev)
     elif segments is not None:
         raise ValueError(f"a ({r}, {width}) tile is narrow: segments split "
                          "only rows wider than 1,024 lanes")
@@ -212,9 +213,9 @@ def ell_edge_map(
         err = fn(x.data_ptr(), idx.data_ptr(), idx.element_size(),
                  deg.data_ptr(), ptr(w), wmode, ptr(frontier), fmode,
                  ptr(alive), ptr(init_rows), y.data_ptr(), ptr(segments),
-                 0 if segments is None else segments.shape[0], SEGMENT_LANES,
-                 ptr(partial), r, width, v, k, group, float(neutral),
-                 float(identity), stream)
+                 0 if segments is None else segments.shape[0], ptr(partial),
+                 r, width, v, k, group, float(neutral), float(identity),
+                 stream)
     if err != 0:
         raise RuntimeError(f"K5 edge-map launch failed: cudaError {err}")
     # a wide tile is two launches: the pieces' blocks, then the fold

@@ -131,8 +131,8 @@ def _wide_tile(cuda, v, dtype, seed):
 def test_wide_rows_match_plain_version_on_every_variant(cuda, dtype, v):
     """The hub-class path (a 256-thread block per piece of a row, then the
     fold) against the plain version on every variant: with the class's
-    segment list, with none (each row's width cut at the same points), and
-    with one segment per row; two calls bitwise equal."""
+    segment list, with none (the wrapper builds the same list from deg),
+    and with one segment per row; two calls bitwise equal."""
     from repro_torch.kernels.edge_map import (ell_edge_map, ell_edge_map_ref,
                                               row_segments)
 

@@ -132,6 +132,26 @@ def test_ell_tiles_segment_lists_cover_each_row_once(name, geometry):
     assert wide == (name == "wide")
 
 
+def test_tiles_from_numpy_carry_the_segment_lists_of_ell_tiles():
+    """The reference's tiles brought across by ``tiles_from_numpy`` carry the
+    segment lists the port's own ``ell_tiles`` builds: none at 1,024 lanes or
+    fewer, bitwise equal above."""
+    g = _graph("wide")
+    bounds = ref_dbg_spec(max(1.0, float(g.in_csr.degrees().mean()))).boundaries
+    copied = tiles_from_numpy(
+        [(np.asarray(t.rows), np.asarray(t.idx), np.asarray(t.deg), None, None)
+         for t in ref_ops.ell_tiles(g.in_csr, bounds)], device="cpu")
+    own = ops.ell_tiles(_port_graph(g).in_csr, bounds, device="cpu")
+    assert len(copied) == len(own)
+    wide = 0
+    for a, b in zip(copied, own):
+        assert (a.segments is None) == (b.segments is None)
+        if b.segments is not None:
+            wide += 1
+            assert torch.equal(a.segments, b.segments)
+    assert wide > 0
+
+
 def test_pad_and_id_width_rules():
     for n in (0, 1, 7, 8, 9, 63, 64, 65, 127, 128, 129, 1000):
         for tile in (8, 64, 128):
