@@ -517,6 +517,7 @@ def time_pull(flat, ell, reps, narrow_builds):
     lib = (csr @ x[:, None])[:, 0]
     err_lib = float((lib - want).abs().max())
     library_ms = _events_ms(lambda: csr @ x[:, None], reps)
+    library_device_ms = _events_ms(lambda: csr @ x[:, None], reps, True)
 
     # The least the card could move: valid lanes of the id plane, deg and y
     # per class, x once; one add per edge.
@@ -530,6 +531,7 @@ def time_pull(flat, ell, reps, narrow_builds):
         launches_per_call=launches_per_call, ms=ms, device_ms=device_ms,
         fused_ms=fused_ms,
         plain_ms=plain_ms, library_ms=library_ms,
+        library_device_ms=library_device_ms,
         bound_ms=max(bound_bytes_ms, bound_ops_ms),
         bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         bound_bytes=need, padded_bytes=padded,
@@ -750,11 +752,14 @@ def _library_csr(crow, col, vals, shape):
 def time_hot_spmv(pk, reps):
     """K4 at ``pack_spmv``'s call on the main-path graph: one launch per hot
     group of the in-adjacency, on the planes padded as ``pack_spmv`` pads
-    them; cuSPARSE over the same rows as the library yardstick."""
+    them; cuSPARSE over the same rows as the library yardstick.  Each time
+    is taken from an idle device (``ms``) and on the device alone
+    (``device_ms``), the whole call and each table."""
     import numpy as np
     import torch
 
     from repro_torch.graph.csr import ragged_offsets
+    from repro_torch.kernels._wrap import lanes_per_row
     from repro_torch.kernels.pack_spmv import hot_spmv, hot_spmv_ref
     from repro_torch.pack import hot_planes
 
@@ -772,9 +777,11 @@ def time_hot_spmv(pk, reps):
     x = torch.rand(v, generator=torch.Generator(device=dev).manual_seed(4),
                    device=dev)
 
+    def one(i, d):
+        return hot_spmv(x, i, d, row_tile=64, width_tile=128)
+
     def kernels():
-        return [hot_spmv(x, i, d, row_tile=64, width_tile=128)[:r]
-                for r, i, d in planes]
+        return [one(i, d)[:r] for r, i, d in planes]
 
     def plain():
         return [_chunked(lambda ii, dd: hot_spmv_ref(x, ii, dd), r,
@@ -796,15 +803,27 @@ def time_hot_spmv(pk, reps):
     itemsize = adj.hot[0].idx.dtype.itemsize
     bound_ms, bound_by = _bound(v * 4 + edges * itemsize + deg_all.size * 8,
                                 edges)
-    return dict(ms=_events_ms(kernels, reps), plain_ms=_events_ms(plain, reps),
+    per_table = []
+    for (r, i, d), dh in zip(planes, degs):
+        n0 = hot_spmv.launches
+        one(i, d)
+        per_table.append(dict(
+            shape=tuple(i.shape), dtype=str(i.dtype).replace("torch.", ""),
+            edges=int(dh.sum()), max_deg=int(dh.max()),
+            group=lanes_per_row(i.shape[1]), segments=None,
+            launches=hot_spmv.launches - n0,
+            ms=_events_ms(lambda i=i, d=d: one(i, d), reps),
+            device_ms=_events_ms(lambda i=i, d=d: one(i, d), reps, True)))
+    return dict(ms=_events_ms(kernels, reps),
+                device_ms=_events_ms(kernels, reps, True),
+                plain_ms=_events_ms(plain, reps),
                 library_ms=_events_ms(lambda: csr @ x[:, None], reps),
+                library_device_ms=_events_ms(lambda: csr @ x[:, None], reps,
+                                             True),
                 launches_per_call=per_call, max_abs_err=err,
                 library_max_abs_err=lib_err, bound_ms=bound_ms,
                 bound_by=bound_by, edges=edges, rows=int(deg_all.size),
-                per_table=[(tuple(i.shape), str(i.dtype).replace("torch.", ""),
-                            _events_ms(lambda i=i, d=d: hot_spmv(
-                                x, i, d, row_tile=64, width_tile=128), reps))
-                           for _, i, d in planes])
+                per_table=per_table)
 
 
 def time_ell_spmv(pk, reps):
@@ -855,9 +874,13 @@ def time_ell_spmv(pk, reps):
     # deg and y per row; the every-lane path reads every lane and no deg.
     bound_ms, bound_by = _bound(edges * 8 + v * 4 + rows * 8, 2 * edges)
     padded_bound_ms, _ = _bound(lanes * 8 + v * 4 + rows * 4, 2 * lanes)
-    return dict(ms=_events_ms(kernels, reps), plain_ms=_events_ms(plain, reps),
+    return dict(ms=_events_ms(kernels, reps),
+                device_ms=_events_ms(kernels, reps, True),
+                plain_ms=_events_ms(plain, reps),
                 padded_ms=_events_ms(padded, reps),
                 library_ms=_events_ms(lambda: csr @ x[:, None], reps),
+                library_device_ms=_events_ms(lambda: csr @ x[:, None], reps,
+                                             True),
                 launches_per_call=per_call, max_abs_err=err,
                 bound_ms=bound_ms, bound_by=bound_by,
                 padded_bound_ms=padded_bound_ms, lanes=lanes, edges=edges,
@@ -907,8 +930,10 @@ def time_hist_bin(pk, reps):
         host.append(time.perf_counter() - t)
     bound_ms, bound_by = _bound(v * 8 + k * 8, v * k)
     return dict(ms=_events_ms(lambda: hist_bin(deg_t, b_t), reps),
+                device_ms=_events_ms(lambda: hist_bin(deg_t, b_t), reps, True),
                 plain_ms=_events_ms(lambda: hist_bin_ref(deg_t, b_t), reps),
                 library_ms=_events_ms(library, reps),
+                library_device_ms=_events_ms(library, reps, True),
                 launches_per_call=per_call, max_abs_err=err,
                 bound_ms=bound_ms, bound_by=bound_by,
                 dbg_bin_ms=_events_ms(lambda: dbg_bin(deg_t, b_t), reps),
@@ -1147,14 +1172,50 @@ def profile_decode_step(model, tokens):
 
 
 # ---------------------------------------------------------------- phase 12
+def _host_us(fn, n=1000):
+    """Host microseconds per ``fn()`` over ``n`` calls issued with no sync
+    between them: what the caller's thread spends to issue one call."""
+    fn()
+    _sync()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    _sync()
+    return dt / n * 1e6
+
+
+def _device_launches(fn):
+    """The device activities (kernels, copies, fills) of one ``fn()``, read
+    under ``torch.profiler`` after a warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with warnings.catch_warnings():  # "Profiler clears events at the end..."
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync()
+    return [e.name[:60] for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
 def time_k2(model, served, reps):
     """K2 at the decode call (the last step's LM_BATCH ids) and at K2_ZIPF_T
     Zipf ids, against its plain version and ``F.embedding`` over the joined
-    table (built once, outside the timed region)."""
+    table (built once, outside the timed region), each from an idle device
+    (``ms``) and on the device alone (``device_ms``); the host time of one
+    call at the decode call; and the device launches of one
+    ``embed_lookup`` at a prefill step (a strided column of the prompt) and
+    at a decode step."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.gather_embed import hot_gather, split_gather_ref
+    from repro_torch.lm.embed import embed_lookup
 
     cfg = model.cfg
     with torch.no_grad():
@@ -1178,17 +1239,36 @@ def time_k2(model, served, reps):
             rows = int(torch.unique(ids).numel())
             row_bytes = d * hot.element_size()
             bound_ms, bound_by = _bound((rows + t) * row_bytes + t * 4, 0)
+
+            def kernel(ids=ids):
+                return hot_gather(ids, hot, cold)
+
+            def library(ids=ids):
+                return F.embedding(ids, table)
+
             out[label] = dict(
                 distinct_rows=rows,
                 bound_ms_t_rows=_bound(2 * t * row_bytes + t * 4, 0)[0],
-                t=t, ms=_events_ms(lambda: hot_gather(ids, hot, cold), reps),
+                t=t, ms=_events_ms(kernel, reps),
+                device_ms=_events_ms(kernel, reps, True),
                 plain_ms=_events_ms(lambda: split_gather_ref(hot, cold, ids),
                                     reps),
-                library_ms=_events_ms(lambda: F.embedding(ids, table), reps),
+                library_ms=_events_ms(library, reps),
+                library_device_ms=_events_ms(library, reps, True),
                 bound_ms=bound_ms, bound_by=bound_by,
                 launches_per_call=per_call, max_abs_err=err)
+        ids = calls["decode"]
+        out["decode"]["host_us"] = _host_us(lambda: hot_gather(ids, hot, cold))
+        out["decode"]["library_host_us"] = _host_us(
+            lambda: F.embedding(ids, table))
         del table
-    return out
+        # what the serving loop passes: a prefill step's column of the
+        # prompt (a strided view) and a decode step's (B, 1) greedy pick
+        steps = {"prefill": served[:, 1:2],
+                 "decode": served[:, -1:].contiguous()}
+        launches = {k: _device_launches(lambda ids=ids: embed_lookup(
+            model.embed, ids)) for k, ids in steps.items()}
+    return out, launches
 
 
 # ---------------------------------------------------------------- main
@@ -1322,23 +1402,32 @@ def main() -> int:
     t0 = time.perf_counter()
     k4, k1, hb = (time_hot_spmv(pk, REPS), time_ell_spmv(pk, REPS),
                   time_hist_bin(pk, REPS))
-    for shape, dtype, ms in k4["per_table"]:
-        log(f"  K4 table {shape} {dtype}: {ms:.4f} ms")
+    for c in k4["per_table"]:
+        split = ("" if c["segments"] is None
+                 else f", split into {c['segments']} pieces")
+        log(f"  K4 table {c['shape']} {c['dtype']}: {c['edges']} edges, "
+            f"longest row {c['max_deg']}, {c['group']} lanes per row"
+            f"{split}, {c['launches']} launch(es): {c['ms']:.4f} ms "
+            f"(device alone {c['device_ms']:.4f})")
     log(f"timed K4 (pack_spmv's hot groups, {k4['rows']} rows, {k4['edges']} "
-        f"edges): kernel {k4['ms']:.4f} ms ({k4['launches_per_call']} "
-        f"launches), plain {k4['plain_ms']:.4f} ms, cuSPARSE "
-        f"{k4['library_ms']:.4f} ms (max |err| vs K4 "
+        f"edges): kernel {k4['ms']:.4f} ms (device alone "
+        f"{k4['device_ms']:.4f}; {k4['launches_per_call']} launches per "
+        f"call), plain {k4['plain_ms']:.4f} ms, cuSPARSE "
+        f"{k4['library_ms']:.4f} ms (device alone "
+        f"{k4['library_device_ms']:.4f}; max |err| vs K4 "
         f"{k4['library_max_abs_err']:.3g}), bound {k4['bound_ms']:.4f} ms")
     for shape, edges, lanes, ms, pms in k1["per_group"]:
         log(f"  K1 group {shape}: {edges} edges, degree walk {ms:.4f} ms "
             f"({lanes} lanes per row{', split' if lanes == 256 else ''}), "
             f"every lane {pms:.4f} ms")
     log(f"timed K1 (dbg_spmv, {k1['edges']} edges in {k1['lanes']} lanes): "
-        f"degree walk {k1['ms']:.4f} ms ({k1['launches_per_call']} launches), "
+        f"degree walk {k1['ms']:.4f} ms (device alone "
+        f"{k1['device_ms']:.4f}; {k1['launches_per_call']} launches), "
         f"every lane {k1['padded_ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
         f"cuSPARSE {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
         f"(real lanes), {k1['padded_bound_ms']:.4f} ms (padded planes)")
-    log(f"timed hist_bin: kernel {hb['ms']:.4f} ms, plain "
+    log(f"timed hist_bin: kernel {hb['ms']:.4f} ms (device alone "
+        f"{hb['device_ms']:.4f}), plain "
         f"{hb['plain_ms']:.4f} ms, searchsorted + bincount "
         f"{hb['library_ms']:.4f} ms, bound {hb['bound_ms']:.4f} ms; device "
         f"DBG (dbg_bin) {hb['dbg_bin_ms']:.4f} ms vs host mapping "
@@ -1380,20 +1469,29 @@ def main() -> int:
 
     # 12. K2's times
     t0 = time.perf_counter()
-    k2 = time_k2(model, served, REPS)
+    k2, lookups = time_k2(model, served, REPS)
     for label, m in k2.items():
         log(f"timed K2 ({label}, T={m['t']}, D={model.cfg.d_model} float32): "
-            f"kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
-            f"F.embedding {m['library_ms']:.4f} ms, bound {m['bound_ms']:.5f}"
+            f"kernel {m['ms']:.4f} ms (device alone {m['device_ms']:.4f}), "
+            f"plain {m['plain_ms']:.4f} ms, F.embedding "
+            f"{m['library_ms']:.4f} ms (device alone "
+            f"{m['library_device_ms']:.4f}), bound {m['bound_ms']:.5f}"
             f" ms ({m['bound_by']}; {m['distinct_rows']} distinct rows; "
             f"{m['bound_ms_t_rows']:.5f} ms if every row were read)")
+    m = k2["decode"]
+    log(f"  host time per call at the decode call (1,000 calls, no sync): "
+        f"hot_gather {m['host_us']:.2f} us, F.embedding "
+        f"{m['library_host_us']:.2f} us")
+    for step, names in lookups.items():
+        log(f"  one embed_lookup at a {step} step: {len(names)} device "
+            f"launch(es) {names}")
     log(f"K2 timings done ({time.perf_counter() - t0:.1f} s)")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     log(json.dumps({"lm_serve": {k: v for k, v in lm.items()
                                  if k != "launches"},
-                    "k2": k2}))
+                    "k2": k2, "embed_lookup_launches": lookups}))
 
     timed = {
         "ell_edge_map": dict(t, max_abs_err=max(e1, e2, t["max_abs_err"])),
@@ -1420,15 +1518,18 @@ def main() -> int:
             "launches_by_path": by_path,
             "launches_per_call": m["launches_per_call"],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "device_ms": m["device_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library_device_ms": m["library_device_ms"],
         }
         if "padded_ms" in m:  # K1 without the degrees: every lane
             entry["padded_ms"] = m["padded_ms"]
             entry["padded_bound_ms"] = m["padded_bound_ms"]
         if "at_zipf_8192" in m:
             entry["at_zipf_8192"] = {k: m["at_zipf_8192"][k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by",
                 "distinct_rows")}
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
