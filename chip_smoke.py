@@ -10,8 +10,10 @@ use.  It imports nothing of JAX and nothing of the JAX package ``repro``.
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit from ``nvidia-smi``;
   2. build: compile (or load) the libraries of all five kernels — K5, K4,
-     K1, hist_bin and K2 — and the two ``NARROW_BUILDS`` of K5's sum, with
-     every ``nvcc`` started together;
+     K1, hist_bin and K2 — the two ``NARROW_BUILDS`` of K5's sum and the
+     four ``K2_BUILDS`` (K2 on the bulk-copy engine, float32 and bfloat16;
+     the float32 kernel without its streaming stores, and without its L2
+     policy), with every ``nvcc`` started together;
   3. K5 vs its plain version on the card, over every static variant, on all
      rows of every tile class of the ``kr`` registry graph at ``small`` scale
      (uint16 ids) and of the main-path graph (int32 ids), a class wider
@@ -40,19 +42,24 @@ Phases (any failure raises, and the script exits non-zero):
   7. K4, K1 and hist_bin vs their plain versions on the card at the packed
      path's shapes: K4 on every hot table of the main-path graph (uint32
      ids), of ``kr``/small (uint16) and of a 256-vertex graph (uint8), each
-     unweighted and weighted; K1 on every DBG group, walking the degrees
+     unweighted and weighted, as ``pack_spmv`` calls it (``max_deg`` and
+     the segment list); a split table also twice and through the list the
+     wrapper builds, bitwise; K1 on every DBG group, walking the degrees
      and every lane, each against the plain version and the two bitwise
      against each other; hist_bin on the out-degrees, also with bounds that
      do not end in 0;
   8. times of K4, K1 and hist_bin at their packed-path calls, beside their
      plain versions, one library call each and their bounds (K1 both ways,
      per DBG group, with the bound over the real lanes and over the padded
-     planes);
-  9. (the graph state freed) K2 vs its plain version on the card, bitwise:
-     ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
-     widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
-     Zipf ids, and at a T that is not a multiple of 32; all-hot and
-     all-cold batches too;
+     planes), each from an idle device and on the device alone; K4 per hot
+     table too, with its lane group, pieces and launches (2 for a split
+     table, else 1);
+  9. (the graph state freed) K2 vs its plain version on the card, bitwise,
+     the kept kernel and the bulk-copy build: ``hot_gather`` and the split
+     gather, float32 and bfloat16, at reduced widths, at Yi-9B's (H 8192, C
+     57,344, D 4096) on 8,192 DBG-remapped Zipf ids, and at a T that is not
+     a multiple of 32; all-hot and all-cold batches, int64 and strided ids
+     too;
  10. the LM serving path at reduced size, card against CPU: reduced Yi-9B
      (GQA) and reduced OLMo-1B, same weights, ``generate`` (batch 2, prompt
      8, 8 new): logits of every step within rtol 1e-4, atol 1e-5, tokens
@@ -64,13 +71,19 @@ Phases (any failure raises, and the script exits non-zero):
      vocabulary, the last logits are finite, and the split gather of the
      served ids equals its plain version bitwise;
  12. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
-     the plain version, ``F.embedding`` over the joined table and the bound.
+     the plain version, ``F.embedding`` over the joined table, the bound and
+     the float32 ``K2_BUILDS`` (each bitwise equal to the kept kernel), from
+     an idle device and on the device alone; the wrapper's host time per
+     call; and the device launches of one ``embed_lookup`` at a prefill and
+     at a decode step under ``torch.profiler``, which must be 1 each.
 
-It prints the ``kernels`` JSON line (a kernel's time is ``ms``, its worst
-error against the plain version ``max_abs_err``, the TPU kernel it replaces
-``replaces``, its launches on each path ``launches_by_path``; K1's ``ms``
-and ``bound_ms`` are its degree walk's, ``padded_ms`` and
-``padded_bound_ms`` its every-lane path's) and, as its last line,
+It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
+device and ``device_ms`` on the device alone, its library call's
+``library_ms`` and ``library_device_ms``, its worst error against the plain
+version ``max_abs_err``, the TPU kernel it replaces ``replaces``, its
+launches on each path ``launches_by_path``; K1's ``ms`` and ``bound_ms`` are
+its degree walk's, ``padded_ms`` and ``padded_bound_ms`` its every-lane
+path's) and, as its last line,
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -93,6 +106,12 @@ SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of a device-only time
 # K5's sum built with the narrow kernel's batch threshold forced (phase 5)
 NARROW_BUILDS = {"batched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=0"],
                  "unbatched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=32"]}
+# K2 built with Hopper's bulk-copy engine (both element types), and the
+# kept float32 kernel without each of its cache hints (phases 9 and 12)
+K2_BUILDS = {"bulk_f32": ["-DK2_ELEM_BYTES=4", "-DK2_BULK=1"],
+             "bulk_bf16": ["-DK2_ELEM_BYTES=2", "-DK2_BULK=1"],
+             "plain_stores": ["-DK2_ELEM_BYTES=4", "-DK2_STREAM_STORES=0"],
+             "no_l2_policy": ["-DK2_ELEM_BYTES=4", "-DK2_L2_POLICY=0"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
@@ -657,15 +676,18 @@ def packed_path(g, g_dbg, gw_dbg, res, device):
 
 # ---------------------------------------------------------------- phase 7
 def new_kernel_grid(pk, small, device):
-    """K4, K1 and hist_bin against their plain versions on the card;
-    returns the worst sum error of K4 and of K1."""
+    """K4, K1 and hist_bin against their plain versions on the card (K4 as
+    ``pack_spmv`` calls it, with each table's ``max_deg`` and segment list;
+    a split table also through the wrapper's own list, and twice, bitwise);
+    returns the worst sum error of K4 and of K1, K4's id widths and the
+    number of split K4 tables checked."""
     import torch
 
     from repro_torch.graph import datasets, generators
     from repro_torch.kernels.csr_spmv import ell_spmv, ell_spmv_ref
     from repro_torch.kernels.hist_bin import hist_bin, hist_bin_ref
-    from repro_torch.kernels.pack_spmv import hot_spmv, hot_spmv_ref
-    from repro_torch.pack import hot_planes, pack_graph
+    from repro_torch.kernels.pack_spmv import hot_spmv, hot_spmv_ref, hot_tables
+    from repro_torch.pack import pack_graph
 
     gen = torch.Generator(device=device).manual_seed(3)
     spec = datasets.REGISTRY["kr"]
@@ -673,28 +695,45 @@ def new_kernel_grid(pk, small, device):
                            name="kr", **spec.extra)
     pg_main = pk["packs"]["dbg"].packed
     pg_small, pg_tiny = pack_graph(small), pack_graph(tiny)
-    err4, checked, widths = 0.0, [], set()
+    err4, checked, widths, split = 0.0, [], set(), 0
     for label, pg in (("main", pg_main), ("kr/small", pg_small),
                       ("256-vertex", pg_tiny)):
         v = pg.num_vertices
         x = torch.rand(v, generator=gen, device=device)
         for direction in ("in_adj", "out_adj"):
-            for _, idx, deg, _ in hot_planes(getattr(pg, direction),
-                                             device=device):
+            for t in hot_tables(getattr(pg, direction), device=device,
+                                row_tile=1, width_tile=1):
+                idx, deg = t.idx, t.deg
                 r, s = idx.shape
                 widths.add(idx.element_size())
                 for w in (None, torch.rand((r, s), generator=gen,
                                            device=device)):
-                    got = hot_spmv(x, idx, deg, w, row_tile=r, width_tile=s)
+                    what = (f"K4 on a {label} {direction} ({r}, {s}) "
+                            f"{idx.dtype} table, w={w is not None}")
+                    got = hot_spmv(x, idx, deg, w, max_deg=t.max_deg,
+                                   segments=t.segments, row_tile=r,
+                                   width_tile=s)
                     ref = _chunked(lambda i, d, ww: hot_spmv_ref(x, i, d, ww),
                                    r, s, idx, deg, w)
-                    err4 = max(err4, _assert_close(
-                        got, ref, "sum", f"K4 on a {label} {direction} "
-                        f"({r}, {s}) {idx.dtype} table, w={w is not None}"))
+                    err4 = max(err4, _assert_close(got, ref, "sum", what))
+                    if t.segments is not None:
+                        # twice, and through the list the wrapper builds
+                        for again in (hot_spmv(x, idx, deg, w,
+                                               max_deg=t.max_deg,
+                                               segments=t.segments,
+                                               row_tile=r, width_tile=s),
+                                      hot_spmv(x, idx, deg, w, row_tile=r,
+                                               width_tile=s)):
+                            if not torch.equal(got, again):
+                                raise AssertionError(f"{what}: two split "
+                                                     "calls differ")
+                        split += 1
                 checked.append((label, direction, r, s))
     _sync()
     log(f"  K4 vs plain: {len(checked)} hot tables x (unweighted, weighted) "
-        f"agree, id widths {sorted(widths)} bytes, max |err| {err4:.3g}")
+        f"agree, id widths {sorted(widths)} bytes, max |err| {err4:.3g}; "
+        f"{split} split calls bitwise equal over two calls and with the "
+        "wrapper's own list")
 
     x = torch.rand(pk["flats"]["dbg"].num_vertices, generator=gen,
                    device=device)
@@ -729,7 +768,7 @@ def new_kernel_grid(pk, small, device):
     _sync()
     log("  hist_bin vs plain: groups and histograms bitwise equal, bounds "
         f"{b_t.tolist()} and {b_t[:-1].tolist()}")
-    return err4, err1, widths
+    return err4, err1, widths, split
 
 
 # ---------------------------------------------------------------- phase 8
@@ -760,15 +799,13 @@ def time_hot_spmv(pk, reps):
 
     from repro_torch.graph.csr import ragged_offsets
     from repro_torch.kernels._wrap import lanes_per_row
-    from repro_torch.kernels.pack_spmv import hot_spmv, hot_spmv_ref
-    from repro_torch.pack import hot_planes
+    from repro_torch.kernels.pack_spmv import hot_spmv, hot_spmv_ref, hot_tables
 
     adj = pk["packs"]["dbg"].packed.in_adj
     dev = pk["deg_t"].device
-    planes, cols, degs = [], [], []
-    for h, idx, deg, _ in hot_planes(adj, device=dev, row_tile=64,
-                                     width_tile=128):
-        planes.append((h.num_rows, idx, deg))
+    tables, cols, degs = hot_tables(adj, device=dev), [], []
+    for t in tables:
+        h = t.group
         at = ragged_offsets(np.arange(h.num_rows, dtype=np.int64) * h.stride,
                             h.deg.astype(np.int64))
         cols.append(h.idx.ravel()[at].astype(np.int64))
@@ -777,15 +814,17 @@ def time_hot_spmv(pk, reps):
     x = torch.rand(v, generator=torch.Generator(device=dev).manual_seed(4),
                    device=dev)
 
-    def one(i, d):
-        return hot_spmv(x, i, d, row_tile=64, width_tile=128)
+    def one(t):  # as ops.pack_spmv calls it
+        return hot_spmv(x, t.idx, t.deg, max_deg=t.max_deg,
+                        segments=t.segments, row_tile=64, width_tile=128)
 
     def kernels():
-        return [one(i, d)[:r] for r, i, d in planes]
+        return [one(t)[:t.group.num_rows] for t in tables]
 
     def plain():
-        return [_chunked(lambda ii, dd: hot_spmv_ref(x, ii, dd), r,
-                         i.shape[1], i, d)[:r] for r, i, d in planes]
+        return [_chunked(lambda ii, dd: hot_spmv_ref(x, ii, dd),
+                         t.idx.shape[0], t.idx.shape[1], t.idx,
+                         t.deg)[:t.group.num_rows] for t in tables]
 
     n0 = hot_spmv.launches
     got = torch.cat(kernels())
@@ -804,16 +843,25 @@ def time_hot_spmv(pk, reps):
     bound_ms, bound_by = _bound(v * 4 + edges * itemsize + deg_all.size * 8,
                                 edges)
     per_table = []
-    for (r, i, d), dh in zip(planes, degs):
+    for t, dh in zip(tables, degs):
         n0 = hot_spmv.launches
-        one(i, d)
+        one(t)
+        group = lanes_per_row(t.max_deg)
+        launches = hot_spmv.launches - n0
+        # what the wrapper launched: the split's two kernels for a 256-lane
+        # group (a block per piece of a row, then the fold), one below
+        if launches != (2 if group == 256 else 1):
+            raise AssertionError(f"K4 table {tuple(t.idx.shape)}: {launches} "
+                                 "launches")
         per_table.append(dict(
-            shape=tuple(i.shape), dtype=str(i.dtype).replace("torch.", ""),
-            edges=int(dh.sum()), max_deg=int(dh.max()),
-            group=lanes_per_row(i.shape[1]), segments=None,
-            launches=hot_spmv.launches - n0,
-            ms=_events_ms(lambda i=i, d=d: one(i, d), reps),
-            device_ms=_events_ms(lambda i=i, d=d: one(i, d), reps, True)))
+            shape=tuple(t.idx.shape),
+            dtype=str(t.idx.dtype).replace("torch.", ""),
+            edges=int(dh.sum()), max_deg=t.max_deg, group=group,
+            segments=(None if t.segments is None
+                      else int(t.segments.shape[0])),
+            launches=launches,
+            ms=_events_ms(lambda t=t: one(t), reps),
+            device_ms=_events_ms(lambda t=t: one(t), reps, True)))
     return dict(ms=_events_ms(kernels, reps),
                 device_ms=_events_ms(kernels, reps, True),
                 plain_ms=_events_ms(plain, reps),
@@ -964,9 +1012,25 @@ def _bitwise(got, want, what):
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def k2_grid(device):
+def _with_k2(lib, kind, fn):
+    """``fn()`` with K2's ``kind`` ("f32" or "bf16") entries taken from
+    ``lib`` (one of ``K2_BUILDS``), then the kept library's entries back."""
+    from importlib import import_module
+
+    ge = import_module("repro_torch.kernels.gather_embed.gather_embed")
+    kept = dict(ge.load_kernels())
+    ge._bind({kind: lib})
+    try:
+        return fn()
+    finally:
+        ge._KERNELS.update(kept)
+
+
+def k2_grid(device, k2_builds):
     """K2 against its plain version, both entry points, float32 and
-    bfloat16, at reduced and at Yi-9B widths; returns (cases, max |err|)."""
+    bfloat16, at reduced and at Yi-9B widths, int32 and int64 ids,
+    contiguous and strided; the kept kernel and the bulk-copy build of the
+    same element type.  Returns (cases, max |err|)."""
     import torch
 
     from repro_torch.configs import get_config, reduced
@@ -985,20 +1049,32 @@ def k2_grid(device):
         table = torch.randn((h + c, d), generator=gen, device=device)
         uniform = torch.randint(-2, h + c + 64, (K2_ZIPF_T,), generator=gen,
                                 device=device, dtype=torch.int32)
+        pair = torch.stack([uniform, zipf], dim=1)  # columns of stride 2
         ids = {"zipf": zipf.clamp(max=h + c - 1), "uniform": uniform,
                "ragged": zipf[:1000], "all_hot": zipf.clamp(0, h - 1),
-               "all_cold": zipf.clamp(h, h + c - 1)}
-        for dtype in (torch.float32, torch.bfloat16):
+               "all_cold": zipf.clamp(h, h + c - 1),
+               "int64": uniform.long(), "strided": pair[:, 0],
+               "int64_strided": pair.long()[:, 1]}
+        for dtype, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             t = table.to(dtype)
             hot, cold = t[:h], t[h:]
-            for what, b in ids.items():
-                label = f"K2 {what} T={b.shape[0]} H={h} C={c} D={d} {dtype}"
-                err = max(err, _bitwise(hot_gather(b, hot, cold),
-                                        split_gather_ref(hot, cold, b),
-                                        label + " split"),
-                          _bitwise(hot_gather(b, hot), hot_gather_ref(b, hot),
-                                   label + " hot-only"))
-                cases += 2
+            for build, lib in (("kept", None),
+                               ("bulk", k2_builds[f"bulk_{kind}"])):
+                for what, b in ids.items():
+                    label = (f"K2 ({build}) {what} T={b.shape[0]} H={h} "
+                             f"C={c} D={d} {dtype}")
+
+                    def both(b=b):
+                        return hot_gather(b, hot, cold), hot_gather(b, hot)
+
+                    split, hot_only = (both() if lib is None
+                                       else _with_k2(lib, kind, both))
+                    err = max(err, _bitwise(split,
+                                            split_gather_ref(hot, cold, b),
+                                            label + " split"),
+                              _bitwise(hot_only, hot_gather_ref(b, hot),
+                                       label + " hot-only"))
+                    cases += 2
             del t, hot, cold
         del table
     _sync()
@@ -1203,14 +1279,16 @@ def _device_launches(fn):
             if e.device_type == DeviceType.CUDA]
 
 
-def time_k2(model, served, reps):
+def time_k2(model, served, reps, k2_builds):
     """K2 at the decode call (the last step's LM_BATCH ids) and at K2_ZIPF_T
-    Zipf ids, against its plain version and ``F.embedding`` over the joined
-    table (built once, outside the timed region), each from an idle device
-    (``ms``) and on the device alone (``device_ms``); the host time of one
-    call at the decode call; and the device launches of one
-    ``embed_lookup`` at a prefill step (a strided column of the prompt) and
-    at a decode step."""
+    Zipf ids, against its plain version, ``F.embedding`` over the joined
+    table (built once, outside the timed region) and the comparison builds
+    of the tables' element type (each checked bitwise against the kept
+    kernel), each from an idle device (``ms``) and on the device alone
+    (``device_ms``); the kept kernel's device time again after the builds;
+    the host time of one call at the decode call; and the device launches
+    of one ``embed_lookup`` at a prefill step (a strided column of the
+    prompt) and at a decode step."""
     import torch
     import torch.nn.functional as F
 
@@ -1218,6 +1296,10 @@ def time_k2(model, served, reps):
     from repro_torch.lm.embed import embed_lookup
 
     cfg = model.cfg
+    elem = f"-DK2_ELEM_BYTES={model.embed['hot'].element_size()}"
+    kind = {4: "f32", 2: "bf16"}[model.embed["hot"].element_size()]
+    builds = {name: lib for name, lib in k2_builds.items()
+              if elem in K2_BUILDS[name]}
     with torch.no_grad():
         hot, cold = model.embed["hot"].detach(), model.embed["cold"].detach()
         table = torch.cat([hot, cold])
@@ -1256,7 +1338,15 @@ def time_k2(model, served, reps):
                 library_ms=_events_ms(library, reps),
                 library_device_ms=_events_ms(library, reps, True),
                 bound_ms=bound_ms, bound_by=bound_by,
-                launches_per_call=per_call, max_abs_err=err)
+                launches_per_call=per_call, max_abs_err=err, builds={})
+            for name, lib in builds.items():
+                _bitwise(_with_k2(lib, kind, kernel), got,
+                         f"K2's {name} build ({label}) vs the kept kernel")
+                out[label]["builds"][name] = _with_k2(lib, kind, lambda: dict(
+                    ms=_events_ms(kernel, reps),
+                    device_ms=_events_ms(kernel, reps, True)))
+            out[label]["kept_again_device_ms"] = _events_ms(kernel, reps,
+                                                            True)
         ids = calls["decode"]
         out["decode"]["host_us"] = _host_us(lambda: hot_gather(ids, hot, cold))
         out["decode"]["library_host_us"] = _host_us(
@@ -1289,6 +1379,8 @@ def main() -> int:
     from repro_torch.kernels import _build, load_all
     from repro_torch.kernels.edge_map import ell_tiles
     from repro_torch.kernels.edge_map.edge_map import _SOURCE as K5_SOURCE
+    from repro_torch.kernels.gather_embed.gather_embed import (
+        _SOURCE as K2_SOURCE)
 
     t_start = time.perf_counter()
     # 1. device
@@ -1301,12 +1393,14 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
-        narrow = pool.submit(_build.load_libraries, K5_SOURCE, NARROW_BUILDS)
+        extra = pool.submit(_build.load_many, [(K5_SOURCE, NARROW_BUILDS),
+                                               (K2_SOURCE, K2_BUILDS)])
         load_all()
-        narrow_builds = narrow.result()
-    log(f"build: K5, K4, K1, hist_bin and K2 libraries, and K5's sum "
-        f"{' and '.join(NARROW_BUILDS)}, ready in "
-        f"{time.perf_counter() - t0:.1f} s (every nvcc started together)")
+        narrow_builds, k2_builds = extra.result()
+    log(f"build: K5, K4, K1, hist_bin and K2 libraries, K5's sum "
+        f"{' and '.join(NARROW_BUILDS)}, and K2 {', '.join(K2_BUILDS)}, "
+        f"ready in {time.perf_counter() - t0:.1f} s (every nvcc started "
+        "together)")
 
     # 3. K5 vs plain, every static variant
     dev = torch.device("cuda")
@@ -1392,10 +1486,12 @@ def main() -> int:
 
     # 7. K4, K1 and hist_bin vs their plain versions
     t0 = time.perf_counter()
-    err4, err1, widths = new_kernel_grid(pk, small, dev)
+    err4, err1, widths, split = new_kernel_grid(pk, small, dev)
     if widths != {1, 2, 4}:
         raise AssertionError(f"K4 was checked on id widths {widths} bytes, "
                              "not on uint8, uint16 and uint32")
+    if split == 0:
+        raise AssertionError("no K4 table wider than 1,024 slots was checked")
     log(f"new kernels vs plain: all agree ({time.perf_counter() - t0:.1f} s)")
 
     # 8. their times
@@ -1444,8 +1540,9 @@ def main() -> int:
     log("float32 matmuls: full float32 (torch.backends.cuda.matmul."
         "allow_tf32 = False)")
     t0 = time.perf_counter()
-    n9, e9 = k2_grid(dev)
-    log(f"K2 vs plain: {n9} cases bitwise equal, max |err| {e9} "
+    n9, e9 = k2_grid(dev, k2_builds)
+    log(f"K2 vs plain (the kept kernel and the bulk-copy build): {n9} cases "
+        f"bitwise equal, max |err| {e9} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # 10. the LM serving path at reduced size, card against CPU
@@ -1469,15 +1566,19 @@ def main() -> int:
 
     # 12. K2's times
     t0 = time.perf_counter()
-    k2, lookups = time_k2(model, served, REPS)
+    k2, lookups = time_k2(model, served, REPS, k2_builds)
     for label, m in k2.items():
         log(f"timed K2 ({label}, T={m['t']}, D={model.cfg.d_model} float32): "
-            f"kernel {m['ms']:.4f} ms (device alone {m['device_ms']:.4f}), "
+            f"kernel {m['ms']:.4f} ms (device alone {m['device_ms']:.4f}; "
+            f"again after the builds {m['kept_again_device_ms']:.4f}), "
             f"plain {m['plain_ms']:.4f} ms, F.embedding "
             f"{m['library_ms']:.4f} ms (device alone "
             f"{m['library_device_ms']:.4f}), bound {m['bound_ms']:.5f}"
             f" ms ({m['bound_by']}; {m['distinct_rows']} distinct rows; "
             f"{m['bound_ms_t_rows']:.5f} ms if every row were read)")
+        for name, b in m["builds"].items():
+            log(f"  K2's {name} build, bitwise equal to the kept kernel: "
+                f"{b['ms']:.4f} ms (device alone {b['device_ms']:.4f})")
     m = k2["decode"]
     log(f"  host time per call at the decode call (1,000 calls, no sync): "
         f"hot_gather {m['host_us']:.2f} us, F.embedding "
@@ -1485,6 +1586,9 @@ def main() -> int:
     for step, names in lookups.items():
         log(f"  one embed_lookup at a {step} step: {len(names)} device "
             f"launch(es) {names}")
+        if len(names) != 1:
+            raise AssertionError(f"one embed_lookup at a {step} step made "
+                                 f"{len(names)} device launches, not 1")
     log(f"K2 timings done ({time.perf_counter() - t0:.1f} s)")
     del model
     gc.collect()

@@ -1,16 +1,17 @@
 """What the port's kernel wrappers share: the checks before a launch, the
-lane-group rule, and the row split of the wide groups."""
+lane-group rule, the row split of the wide groups, and the launch on the
+current stream."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["SEGMENT_LANES", "class_segments", "lanes_per_row", "require",
-           "row_segments", "split_scratch_rows"]
+__all__ = ["SEGMENT_LANES", "class_segments", "lanes_per_row", "launch_on",
+           "require", "row_segments", "split_scratch_rows", "walk_group"]
 
-#: Lanes of a row that one block of a wide group (K5, K1) walks at most:
+#: Lanes of a row that one block of a wide group (K5, K1, K4) walks at most:
 #: longer rows are split across blocks (``row_segments``).
 SEGMENT_LANES = 4096
 
@@ -38,6 +39,37 @@ def lanes_per_row(width: int) -> int:
     if width <= 16:
         return 16
     return 32 if width <= 1024 else 256
+
+
+def walk_group(width: int, max_deg: Optional[int],
+               segments: Optional[torch.Tensor], device) -> Tuple[int, int]:
+    """``(walk, group)`` of a degree-masked row walk (K4, K1): the longest
+    row walked, ``max_deg`` clipped to ``[1, width]`` (the width without
+    it), and its lane group.  ``segments``, when given, must be an (S, 3)
+    int32 list on ``device`` and the group must be 256 lanes: only rows
+    wider than 1,024 lanes are split."""
+    walk = width if max_deg is None else max(1, min(int(max_deg), width))
+    group = lanes_per_row(walk)
+    if segments is not None:
+        if group < 256:
+            raise ValueError(f"{walk} lanes per row is narrow: segments "
+                             "split only rows wider than 1,024 lanes")
+        require(segments, "segments", torch.int32,
+                (segments.shape[0] if segments.dim() else 0, 3), device)
+    return walk, group
+
+
+def launch_on(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a kernel's C entry launched on the current
+    raw stream of ``device``, a CUDA device.  ``device`` is made the
+    current device only when it is not already, so the common call costs
+    two queries and no context switch."""
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def row_segments(deg, chunk: int = SEGMENT_LANES) -> np.ndarray:

@@ -27,7 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .._wrap import SEGMENT_LANES, lanes_per_row, require, split_scratch_rows
+from .._wrap import SEGMENT_LANES, require, split_scratch_rows, walk_group
 
 __all__ = ["ell_spmv", "load_kernels"]
 
@@ -99,23 +99,16 @@ def ell_spmv(
         raise TypeError("x must be a contiguous float32 (V,) tensor")
     require(idx, "idx", torch.int32, (r, width), dev)
     require(w, "w", torch.float32, (r, width), dev)
-    walk = width
     if deg is not None:
         require(deg, "deg", torch.int32, (r,), dev)
-        walk = width if max_deg is None else max(1, min(int(max_deg), width))
-    group = lanes_per_row(walk)
+    elif segments is not None:
+        raise ValueError("segments cut the rows' degrees: pass deg")
+    walk, group = walk_group(width, None if deg is None else max_deg,
+                             segments, dev)
     partial = None
     if group == 256:
-        if segments is not None:
-            if deg is None:
-                raise ValueError("segments cut the rows' degrees: pass deg")
-            require(segments, "segments", torch.int32,
-                    (segments.shape[0], 3), dev)
         partial = torch.empty((split_scratch_rows(segments, r, width),),
                               dtype=torch.float32, device=dev)
-    elif segments is not None:
-        raise ValueError(f"{walk} lanes per row is narrow: segments split "
-                         "only rows wider than 1,024 lanes")
     if x.shape[0] == 0:
         raise ValueError("x is empty")
 

@@ -16,20 +16,19 @@
 // What the design does about it:
 //  * a group of G lanes owns one row and strides its lanes, so neighbouring
 //    lanes read neighbouring plane addresses (coalesced 128-byte lines) and
-//    a row with a degree vector stops at deg[r], never reading its padding
-//    (K4 always; K1 since it keeps its packer's degrees);
+//    a row with a degree vector stops at deg[r], never reading its padding;
 //  * G = 8 / 16 / 32 lanes for narrow planes (several rows per block, a
-//    fixed shuffle tree), and G = 256 — a whole block per row — for planes
-//    wider than 1,024 lanes, so a hub row of ~10^5 lanes takes ~300 steps
-//    per lane instead of ~2,400 in one warp;
-//  * K1's instantiations (UNROLL >= 1) keep UNROLL lanes' loads in flight
-//    per thread before they sum them, so a thread that walks several lanes
-//    waits once per UNROLL lanes for the gather, not once per lane; K4's
-//    (UNROLL == 0) is unchanged;
-//  * K1's wide groups can split their rows into segments of a few thousand
-//    lanes, one block each, and fold each row's partials in a second
-//    launch (launch_split), so the longest rows stop setting the group's
-//    tail;
+//    fixed shuffle tree), sized by the caller to the longest row walked;
+//  * each thread keeps UNROLL lanes' loads in flight before it sums them
+//    (walk()), so a thread that walks several lanes waits once per UNROLL
+//    lanes for the gather, not once per lane; the callers take UNROLL = 8
+//    where a thread walks more than 4 lanes and 1 below, where the warps
+//    keep the gathers in flight and a batch's registers would only cost
+//    occupancy;
+//  * rows wider than 1,024 lanes are split into segments of a few thousand
+//    lanes, one 256-thread block each, and a second launch folds each row's
+//    partials in order (launch_split), so the longest rows stop setting the
+//    group's tail;
 //  * each lane sums its lanes in order and the group reduces in a fixed
 //    order (shuffles, then the eight warp partials in index order), so sums
 //    come out the same from run to run, with no float atomics;
@@ -133,15 +132,15 @@ __device__ __forceinline__ float pad_term(const float* __restrict__ x,
   return d < width ? __fadd_rn(acc, __fmul_rn(__ldg(x), 0.0f)) : acc;
 }
 
-// UNROLL == 0 is K4's path, the one-lane-at-a-time walk.  UNROLL >= 1 is
-// K1's (walk() above, UNROLL lanes in flight), and PAD_TERM (K1) adds
-// pad_term() to each row.
+// One row per group of G lanes, UNROLL lanes in flight per thread
+// (walk()); PAD_TERM (K1) adds pad_term() to each row.
 template <typename IdT, bool WEIGHTED, int G, int UNROLL, bool PAD_TERM>
 __global__ void __launch_bounds__(kThreads)
 kernel(const float* __restrict__ x, const IdT* __restrict__ idx,
        const int32_t* __restrict__ deg, const float* __restrict__ w,
        float* __restrict__ y, int64_t rows, int64_t width,
        int64_t num_vertices) {
+  static_assert(UNROLL >= 1, "a thread keeps at least one lane in flight");
   const int sub = threadIdx.x % G;
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
@@ -152,23 +151,8 @@ kernel(const float* __restrict__ x, const IdT* __restrict__ idx,
     d = deg == nullptr ? width : deg[row];
     d = d < 0 ? 0 : (d > width ? width : d);
   }
-  const int64_t base = row * width;
-  float acc = 0.0f;
-  if constexpr (UNROLL == 0) {
-    for (int64_t c = sub; c < d; c += G) {
-      const uint64_t j =
-          static_cast<uint64_t>(static_cast<int64_t>(idx[base + c]));
-      if (j >= static_cast<uint64_t>(num_vertices)) {
-        __trap();
-      }
-      float v = __ldg(x + j);
-      if constexpr (WEIGHTED) v *= w[base + c];
-      acc += v;
-    }
-  } else {
-    acc = walk<IdT, WEIGHTED, UNROLL>(x, idx, w, base, sub, d, G,
-                                      num_vertices);
-  }
+  float acc = walk<IdT, WEIGHTED, UNROLL>(x, idx, w, row * width, sub, d, G,
+                                          num_vertices);
   acc = group_sum<G>(acc);
   if (live && sub == 0) {
     if constexpr (PAD_TERM) acc = pad_term(x, acc, d, width);
@@ -176,12 +160,13 @@ kernel(const float* __restrict__ x, const IdT* __restrict__ idx,
   }
 }
 
-// The row split (K1's wide groups), in two launches.  segment_kernel: block
-// b walks one segment of one row, a 256-thread group over its lanes, and
-// writes the segment's sum to partial[b].  The segments are segs[b] =
-// (row, lane_begin, lane_end), sorted by row, each row's in lane order from
-// lane 0 (a degree walk); or, with segs == nullptr, every row's [0, width)
-// cut into per_row pieces of `chunk` lanes (the every-lane path).  Both cut
+// The row split (the wide groups of K1 and K4), in two launches.
+// segment_kernel: block b walks one segment of one row, a 256-thread group
+// over its lanes, and writes the segment's sum to partial[b].  The segments
+// are segs[b] = (row, lane_begin, lane_end), sorted by row, each row's in
+// lane order from lane 0 (a degree walk); or, with segs == nullptr, every
+// row's [0, width) cut into per_row pieces of `chunk` lanes (K1's
+// every-lane path).  Both cut
 // at multiples of `chunk`, so the two paths sum the same lanes in the same
 // order and agree bit for bit wherever the padding adds only zeros.
 template <typename IdT, bool WEIGHTED, int UNROLL>
@@ -263,7 +248,7 @@ cudaError_t launch_group(const void* x, const void* idx, const void* deg,
 // group: lanes per row, 8, 16, 32 or 256.  deg may be null (every lane of
 // the row); w must be non-null when WEIGHTED.  Launches on `stream`,
 // allocates nothing, and returns cudaGetLastError() after the launch.
-template <typename IdT, bool WEIGHTED, int UNROLL = 0, bool PAD_TERM = false>
+template <typename IdT, bool WEIGHTED, int UNROLL, bool PAD_TERM>
 cudaError_t launch(int group, const void* x, const void* idx,
                    const void* deg, const void* w, void* y, int64_t rows,
                    int64_t width, int64_t num_vertices, cudaStream_t stream) {

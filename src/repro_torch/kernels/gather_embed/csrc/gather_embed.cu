@@ -12,26 +12,39 @@
 //                          C - 1 (the reference's XLA gather clamps too)
 //
 // An id below 0 is outside the contract and is clamped to 0: no id ever
-// makes the kernel read outside a table.  The element type is float32 or
-// bfloat16 (K2_ELEM_BYTES = 4 or 2, one library each); the copy never looks
-// at the values, so the result is bitwise the table's rows.
+// makes the kernel read outside a table.  Ids are int32 or int64, read
+// through an element stride, so a strided column of a prompt needs no copy
+// kernel ahead of this one.  The element type is float32 or bfloat16
+// (K2_ELEM_BYTES = 4 or 2, one library each); the copy never looks at the
+// values, so the result is bitwise the table's rows.
 //
 // What bounds it on the H100: bytes — each output row is read once from a
-// table and written once (T * D * elem each way, plus 4 bytes of id per
-// token); there is no arithmetic.
+// table and written once (T * D * elem each way, plus the ids); there is no
+// arithmetic.  At the decode call (T = batch) the bytes are nothing, and
+// what is left is the launch and the wrapper's host time.
 //
 // What the design does about it:
 //  * the TPU design kept the (H, D) hot panel resident in VMEM.  At Yi-9B
 //    width that panel is 8192 x 4096 x 4 B = 128 MiB, more than the H100's
 //    50 MB L2 and far more than a block's 227 KB of shared memory, so the
-//    kernel is a plain row copy: hot rows get their locality from L2 reuse
-//    across tokens, which is what DBG's grouping buys on this card;
-//  * one thread per 16-byte vector of the output (uint4 loads and stores,
-//    neighbouring threads on neighbouring addresses) when D * elem is a
-//    multiple of 16 and every pointer is 16-byte aligned, else one thread per
-//    element; a grid-stride loop over T * (vectors per row) on a bounded
-//    grid, so any T works and a short decode call (T = batch) still spreads
-//    its rows over many blocks.
+//    kernel is a row copy: hot rows get their locality from L2 reuse across
+//    tokens, which is what DBG's grouping buys on this card;
+//  * one block per output row: the id is read once per block and no thread
+//    divides; the row's 16-byte units (uint4, when the row is a multiple of
+//    16 bytes and every table and the output are 16-byte aligned; else
+//    elements) are strided over the 256 threads, kBatch per thread, all
+//    loads issued before the stores;
+//  * stores are streaming (st.global.cs, K2_STREAM_STORES): the output is
+//    never re-read by this kernel, so it should not evict the hot rows from
+//    L2; hot-row loads carry an L2 evict_last policy and cold-row loads
+//    evict_first (K2_L2_POLICY).
+//
+// A comparison build, -DK2_BULK=1, copies each row with Hopper's bulk-copy
+// engine instead: one thread of a one-warp block issues cp.async.bulk
+// global -> shared on an mbarrier, then shared -> global, kStages chunks in
+// flight per block (16-byte rows and pointers only; the rest take the
+// element kernel above).  chip_smoke.py builds it beside the kept kernel
+// and times both.
 //
 // The C entries return cudaGetLastError() after the launch; the launch is on
 // the caller's stream and allocates nothing.
@@ -41,6 +54,15 @@
 
 #ifndef K2_ELEM_BYTES
 #define K2_ELEM_BYTES 4
+#endif
+#ifndef K2_STREAM_STORES
+#define K2_STREAM_STORES 1
+#endif
+#ifndef K2_L2_POLICY
+#define K2_L2_POLICY 1
+#endif
+#ifndef K2_BULK
+#define K2_BULK 0
 #endif
 
 namespace {
@@ -54,76 +76,303 @@ using Elem = uint16_t;  // bfloat16, copied as its bits
 #endif
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // 16 blocks per SM on an H100
+constexpr int kBatch = 4;  // units per thread in flight: a 16 KiB row at once
 
-// Unit: the copy unit (uint4 or Elem); units: units per row.
-template <typename Unit, bool kSplit>
+// An L2 access policy for every line a load touches.
+__device__ __forceinline__ uint64_t l2_policy(bool keep) {
+  uint64_t p;
+  if (keep) {
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  } else {
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  }
+  return p;
+}
+
+__device__ __forceinline__ uint4 load(const uint4* p, uint64_t policy) {
+#if K2_L2_POLICY
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+#else
+  return __ldg(p);
+#endif
+}
+
+__device__ __forceinline__ uint32_t load(const uint32_t* p, uint64_t policy) {
+#if K2_L2_POLICY
+  uint32_t v;
+  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+      : "=r"(v)
+      : "l"(p), "l"(policy));
+  return v;
+#else
+  return __ldg(p);
+#endif
+}
+
+__device__ __forceinline__ uint16_t load(const uint16_t* p, uint64_t policy) {
+#if K2_L2_POLICY
+  uint16_t v;
+  asm("ld.global.nc.L2::cache_hint.u16 %0, [%1], %2;"
+      : "=h"(v)
+      : "l"(p), "l"(policy));
+  return v;
+#else
+  return __ldg(p);
+#endif
+}
+
+template <typename Unit>
+__device__ __forceinline__ void store(Unit* p, Unit v) {
+#if K2_STREAM_STORES
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// The table row token t reads (-1: a zero row), and whether it is hot.
+template <typename IdT, bool kSplit>
+__device__ __forceinline__ int64_t source_row(const IdT* __restrict__ ids,
+                                              int64_t id_stride, int64_t t,
+                                              int64_t h, int64_t c,
+                                              bool* hot) {
+  int64_t id = static_cast<int64_t>(ids[t * id_stride]);
+  if (id < 0) id = 0;
+  *hot = id < h;
+  if (*hot) return id;
+  if (kSplit) return id - h < c ? id - h : c - 1;
+  return -1;  // hot_gather's cold id: a zero row
+}
+
+// Block t copies output row t.  Unit: the copy unit (uint4 or Elem); units:
+// units per row.
+template <typename Unit, typename IdT, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
-gather_kernel(const int32_t* __restrict__ ids, const Unit* __restrict__ hot,
-              int64_t h, const Unit* __restrict__ cold, int64_t c,
-              int64_t units, Unit* __restrict__ out, int64_t n) {
-  const int64_t total = n * units;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < total; i += stride) {
-    const int64_t t = i / units;
-    const int64_t j = i - t * units;
-    int64_t id = ids[t];
-    if (id < 0) id = 0;
-    const Unit* src = nullptr;
-    if (id < h) {
-      src = hot + id * units;
-    } else if (kSplit && c > 0) {
-      const int64_t r = id - h < c ? id - h : c - 1;
-      src = cold + r * units;
+row_kernel(const IdT* __restrict__ ids, int64_t id_stride,
+           const Unit* __restrict__ hot, int64_t h,
+           const Unit* __restrict__ cold, int64_t c, int units,
+           Unit* __restrict__ out) {
+  const int64_t t = blockIdx.x;
+  bool is_hot;
+  const int64_t r = source_row<IdT, kSplit>(ids, id_stride, t, h, c, &is_hot);
+  const Unit* src =
+      r < 0 ? nullptr : (is_hot ? hot : cold) + r * static_cast<int64_t>(units);
+  Unit* dst = out + t * static_cast<int64_t>(units);
+  const uint64_t policy = l2_policy(is_hot);
+  for (int j0 = threadIdx.x; j0 < units; j0 += kThreads * kBatch) {
+    Unit v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int j = j0 + b * kThreads;
+      v[b] = src != nullptr && j < units ? load(src + j, policy) : Unit{};
     }
-    out[i] = src != nullptr ? src[j] : Unit{};  // zero row: hot_gather's cold id
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int j = j0 + b * kThreads;
+      if (j < units) store(dst + j, v[b]);
+    }
   }
 }
 
-template <bool kSplit>
-int launch(const void* ids, const void* hot, int64_t h, const void* cold,
-           int64_t c, int64_t d, void* out, int64_t n, void* stream) {
-  if (h < 0 || c < 0 || d < 1 || n < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+#if K2_BULK
+constexpr int kChunk = 8192;  // bytes per bulk copy
+constexpr int kStages = 4;    // chunks in flight per block
+constexpr int kBulkBlocks = 132 * 6;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "K2_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra K2_WAIT;\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// One warp per block; lane 0 issues every copy.  The block walks rows
+// blockIdx.x, + gridDim.x, ..., each in chunks of at most kChunk bytes;
+// chunk k of the block uses stage k % kStages.  A zero row is written by
+// the warp's plain stores.
+template <typename IdT, bool kSplit>
+__global__ void __launch_bounds__(32)
+bulk_kernel(const IdT* __restrict__ ids, int64_t id_stride,
+            const char* __restrict__ hot, int64_t h,
+            const char* __restrict__ cold, int64_t c, int64_t row_bytes,
+            char* __restrict__ out, int64_t n) {
+  __shared__ __align__(128) char buf[kStages][kChunk];
+  __shared__ __align__(8) uint64_t bars[kStages];
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(&bars[s])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  if (n == 0) return 0;
+  __syncwarp();
+  // The block's chunks as a stream: (row, offset) of chunk k.  Loads run
+  // kStages ahead of stores.
+  int64_t load_t = blockIdx.x, load_off = 0;      // next chunk to load
+  int64_t store_t = blockIdx.x, store_off = 0;    // next chunk to store
+  uint32_t parity = 0;  // bit s: the phase stage s waits for next
+  int64_t k_load = 0, k_store = 0;
+  auto source = [&](int64_t t) -> const char* {
+    bool is_hot;
+    const int64_t r = source_row<IdT, kSplit>(ids, id_stride, t, h, c, &is_hot);
+    return r < 0 ? nullptr : (is_hot ? hot : cold) + r * row_bytes;
+  };
+  auto issue = [&]() {
+    // lane 0 issues the load of the next chunk, if any, into its stage
+    if (load_t >= n) return;
+    const int s = static_cast<int>(k_load % kStages);
+    const int64_t left = row_bytes - load_off;
+    const uint32_t bytes = static_cast<uint32_t>(left < kChunk ? left : kChunk);
+    const char* src = source(load_t);
+    if (lane == 0 && src != nullptr) {
+      bulk_load(smem_addr(buf[s]), src + load_off, bytes, smem_addr(&bars[s]));
+    }
+    ++k_load;
+    load_off += bytes;
+    if (load_off == row_bytes) {
+      load_off = 0;
+      load_t += gridDim.x;
+    }
+  };
+  for (int i = 0; i < kStages; ++i) issue();
+  while (store_t < n) {
+    const int s = static_cast<int>(k_store % kStages);
+    const int64_t left = row_bytes - store_off;
+    const uint32_t bytes = static_cast<uint32_t>(left < kChunk ? left : kChunk);
+    const char* src = source(store_t);
+    char* dst = out + store_t * row_bytes + store_off;
+    if (src != nullptr) {
+      if (lane == 0) {
+        bar_wait(smem_addr(&bars[s]), (parity >> s) & 1u);
+        asm volatile(
+            "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+            :: "l"(dst), "r"(smem_addr(buf[s])), "r"(bytes) : "memory");
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        // the stage is refilled next: its store must have read it
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
+      parity ^= 1u << s;
+    } else {
+      for (uint32_t j = lane * 16; j < bytes; j += 32 * 16) {
+        *reinterpret_cast<uint4*>(dst + j) = uint4{};
+      }
+    }
+    __syncwarp();
+    ++k_store;
+    store_off += bytes;
+    if (store_off == row_bytes) {
+      store_off = 0;
+      store_t += gridDim.x;
+    }
+    issue();
+  }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+#endif  // K2_BULK
+
+template <typename IdT, bool kSplit>
+cudaError_t launch_ids(const IdT* ids, int64_t id_stride, const void* hot,
+                       int64_t h, const void* cold, int64_t c, int64_t d,
+                       void* out, int64_t n, cudaStream_t s) {
   const int64_t row_bytes = d * K2_ELEM_BYTES;
   const bool vec = row_bytes % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(hot) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(cold) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int64_t units = vec ? row_bytes / 16 : d;
-  int64_t blocks = (n * units + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* id = static_cast<const int32_t*>(ids);
+  const auto blocks = static_cast<unsigned>(n);
   if (vec) {
-    gather_kernel<uint4, kSplit><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        id, static_cast<const uint4*>(hot), h, static_cast<const uint4*>(cold),
-        c, units, static_cast<uint4*>(out), n);
+#if K2_BULK
+    const unsigned bulk = n < kBulkBlocks ? static_cast<unsigned>(n)
+                                          : static_cast<unsigned>(kBulkBlocks);
+    bulk_kernel<IdT, kSplit><<<bulk, 32, 0, s>>>(
+        ids, id_stride, static_cast<const char*>(hot), h,
+        static_cast<const char*>(cold), c, row_bytes,
+        static_cast<char*>(out), n);
+#else
+    row_kernel<uint4, IdT, kSplit><<<blocks, kThreads, 0, s>>>(
+        ids, id_stride, static_cast<const uint4*>(hot), h,
+        static_cast<const uint4*>(cold), c, static_cast<int>(row_bytes / 16),
+        static_cast<uint4*>(out));
+#endif
   } else {
-    gather_kernel<Elem, kSplit><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        id, static_cast<const Elem*>(hot), h, static_cast<const Elem*>(cold),
-        c, units, static_cast<Elem*>(out), n);
+    row_kernel<Elem, IdT, kSplit><<<blocks, kThreads, 0, s>>>(
+        ids, id_stride, static_cast<const Elem*>(hot), h,
+        static_cast<const Elem*>(cold), c, static_cast<int>(d),
+        static_cast<Elem*>(out));
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+template <bool kSplit>
+int launch(const void* ids, int id_bytes, int64_t id_stride, const void* hot,
+           int64_t h, const void* cold, int64_t c, int64_t d, void* out,
+           int64_t n, void* stream) {
+  // a grid over T: at most 2^31 - 1 rows; a row's units index in an int
+  if (h < 0 || c < 0 || d < 1 || d > INT32_MAX || n < 0 || n > INT32_MAX ||
+      id_stride < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (id_bytes) {
+    case 4:
+      err = launch_ids<int32_t, kSplit>(static_cast<const int32_t*>(ids),
+                                        id_stride, hot, h, cold, c, d, out, n,
+                                        s);
+      break;
+    case 8:
+      err = launch_ids<int64_t, kSplit>(static_cast<const int64_t*>(ids),
+                                        id_stride, hot, h, cold, c, d, out, n,
+                                        s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// ids: (n,) int32; hot: (h, d); out: (n, d); elements of K2_ELEM_BYTES.
+// ids: (n,) int32 or int64 (id_bytes 4 or 8), element i at ids[i *
+// id_stride]; hot: (h, d); out: (n, d); elements of K2_ELEM_BYTES.
 // Returns a cudaError_t (0 on success).
-extern "C" int hot_gather(const void* ids, const void* hot, int64_t h,
-                          int64_t d, void* out, int64_t n, void* stream) {
-  return launch<false>(ids, hot, h, nullptr, 0, d, out, n, stream);
+extern "C" int hot_gather(const void* ids, int id_bytes, int64_t id_stride,
+                          const void* hot, int64_t h, int64_t d, void* out,
+                          int64_t n, void* stream) {
+  return launch<false>(ids, id_bytes, id_stride, hot, h, nullptr, 0, d, out,
+                       n, stream);
 }
 
-// ids: (n,) int32; hot: (h, d); cold: (c, d) with c >= 1; out: (n, d).
-// Returns a cudaError_t (0 on success).
-extern "C" int split_gather(const void* ids, const void* hot, int64_t h,
-                            const void* cold, int64_t c, int64_t d, void* out,
-                            int64_t n, void* stream) {
+// As hot_gather, with cold: (c, d), c >= 1.
+extern "C" int split_gather(const void* ids, int id_bytes, int64_t id_stride,
+                            const void* hot, int64_t h, const void* cold,
+                            int64_t c, int64_t d, void* out, int64_t n,
+                            void* stream) {
   if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true>(ids, hot, h, cold, c, d, out, n, stream);
+  return launch<true>(ids, id_bytes, id_stride, hot, h, cold, c, d, out, n,
+                      stream);
 }

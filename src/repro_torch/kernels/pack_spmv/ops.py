@@ -1,8 +1,10 @@
 """Full pull-mode SpMV over a ``PackedAdjacency``.
 
 Port of ``repro.kernels.pack_spmv.ops``.  ``pack_spmv`` is the decode-free
-edge map of the packed layout: one K4 launch per hot group (fixed-stride
-slots, degree-masked — no stored padding weights on the unweighted path),
+edge map of the packed layout: one K4 call per hot group (fixed-stride
+slots, degree-masked — no stored padding weights on the unweighted path;
+the hub group's rows split across blocks by the segment list
+``hot_tables`` builds with the planes),
 and a decoded path for the cold segment: the varint stream is decoded and
 reduced with one sorted-segment sum.  Every vertex owns exactly one row (a
 hot slot row or a cold row), so each partial result is written with
@@ -13,15 +15,46 @@ graph (tests and ``chip_smoke.py``).
 """
 from __future__ import annotations
 
+from typing import List, NamedTuple, Optional
+
 import numpy as np
 import torch
 
 from ...device import to_device
 from ...pack.engine import hot_planes
-from ...pack.layout import PackedAdjacency
+from ...pack.layout import HotGroup, PackedAdjacency
+from .._wrap import class_segments
 from .pack_spmv import hot_spmv
 
-__all__ = ["pack_spmv", "decode_cold_tiles"]
+__all__ = ["HotTable", "decode_cold_tiles", "hot_tables", "pack_spmv"]
+
+
+class HotTable(NamedTuple):
+    """One hot slot table as K4 takes it: the planes padded to the tile, the
+    longest row, and the segment list of a table wider than 1,024 slots."""
+
+    group: HotGroup
+    idx: torch.Tensor  # (R, W) uint8 / uint16 / uint32, as stored
+    deg: torch.Tensor  # (R,) int32, 0 on the padding rows
+    w: Optional[torch.Tensor]  # (R, W) float32 or None
+    max_deg: int
+    segments: Optional[torch.Tensor]  # (S, 3) int32 or None
+
+
+def hot_tables(adj: PackedAdjacency, *, device, row_tile: int = 64,
+               width_tile: int = 128) -> List[HotTable]:
+    """``hot_planes`` with K4's walk: each table's ``max_deg`` and, where
+    its group takes 256 lanes, ``row_segments`` of its padded degrees, both
+    from the host ``h.deg``."""
+    out = []
+    for h, idx, deg, w in hot_planes(adj, device=device, row_tile=row_tile,
+                                     width_tile=width_tile):
+        padded = np.zeros(idx.shape[0], np.int64)
+        padded[:h.num_rows] = h.deg
+        max_deg = int(padded.max())
+        out.append(HotTable(h, idx, deg, w, max_deg,
+                            class_segments(padded, max_deg, device)))
+    return out
 
 
 def decode_cold_tiles(adj: PackedAdjacency):
@@ -54,12 +87,13 @@ def pack_spmv(
     """
     dev = x.device
     y = torch.zeros((adj.num_vertices,), dtype=x.dtype, device=dev)
-    for h, idx, deg, wgt in hot_planes(adj, device=dev, row_tile=row_tile,
-                                       width_tile=width_tile):
-        ys = hot_spmv(x, idx, deg, wgt, row_tile=row_tile,
+    for t in hot_tables(adj, device=dev, row_tile=row_tile,
+                        width_tile=width_tile):
+        ys = hot_spmv(x, t.idx, t.deg, t.w, max_deg=t.max_deg,
+                      segments=t.segments, row_tile=row_tile,
                       width_tile=width_tile)
-        y.index_copy_(0, to_device(h.rows.astype(np.int64), dev),
-                      ys[:h.num_rows])
+        y.index_copy_(0, to_device(t.group.rows.astype(np.int64), dev),
+                      ys[:t.group.num_rows])
 
     _, neigh, w = decode_cold_tiles(adj)
     if neigh.shape[0]:

@@ -2,10 +2,13 @@
 kernel.
 
 Port of ``repro.kernels.pack_spmv.pack_spmv`` (the TPU kernel
-``hot_spmv_pallas``).  One launch per hot slot table computes
+``hot_spmv_pallas``).  One call per hot slot table computes
 ``y[r] = Σ_{c < deg[r]} x[idx[r, c]] (· w[r, c])``: the slot padding is
 masked by the true degree, so the unweighted path reads the id plane alone,
-at the width the packed storage keeps it (uint8, uint16 or uint32).
+at the width the packed storage keeps it (uint8, uint16 or uint32).  The
+lane group is sized to the table's longest row (``max_deg``), and a table
+whose rows pass 1,024 slots (the hub) is split into pieces of at most
+``SEGMENT_LANES`` slots, a block each, folded per row in a second launch.
 
 The kernel is ``csrc/pack_spmv.cu``, built with ``nvcc`` at first use
 (``repro_torch.kernels._build``).  :func:`hot_spmv` launches it for CUDA
@@ -20,7 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .._wrap import lanes_per_row, require
+from .._wrap import SEGMENT_LANES, class_segments, launch_on, require, walk_group
 
 __all__ = ["ID_DTYPES", "hot_spmv", "load_kernels"]
 
@@ -35,7 +38,8 @@ _KERNELS: Dict[str, ctypes._CFuncPtr] = {}
 def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fn = libs["all"].k4_hot_spmv
-    fn.argtypes = [p, p, i32, p, p, p, i64, i64, i64, i32, p]
+    fn.argtypes = [p, p, i32, p, p, p, i64, i64, p, p, i64, i64, i64, i32,
+                   i64, p]
     fn.restype = ctypes.c_int
     _KERNELS["hot_spmv"] = fn
 
@@ -55,6 +59,8 @@ def hot_spmv(
     deg: torch.Tensor,
     w: Optional[torch.Tensor] = None,
     *,
+    max_deg: Optional[int] = None,
+    segments: Optional[torch.Tensor] = None,
     row_tile: int = 64,
     width_tile: int = 128,
 ) -> torch.Tensor:
@@ -66,8 +72,19 @@ def hot_spmv(
     ``deg`` (int32 (R,)), so their contents are never read.  ``x`` float32
     (V,); ``w`` float32 (R, W) or None.  Every valid id must be < V.
 
-    CUDA tensors launch the K4 kernel (and count one launch in
-    ``hot_spmv.launches``); CPU tensors take the plain PyTorch version.
+    ``max_deg`` (host int, the largest of ``deg``) sizes the lane group to
+    the longest row walked; without it the width does.  A group of 256
+    lanes (rows wider than 1,024 slots) splits its rows into pieces, a block
+    each, and folds them in a second launch: ``segments`` (S, 3) int32, the
+    table's ``row_segments(deg)``, cuts each row at every ``SEGMENT_LANES``
+    of its degree.  A caller that passes none gets that list built here
+    from ``deg`` (a copy to the host: set-up, not per-call work, so
+    ``ops.pack_spmv`` passes its own).  These change how the kernel walks,
+    not the function.
+
+    CUDA tensors launch the K4 kernel (and count its launches in
+    ``hot_spmv.launches``: one, or two for a 256-lane group); CPU tensors
+    take the plain PyTorch version, which checks the same arguments.
     """
     r, width = idx.shape
     if r % row_tile or width % width_tile:
@@ -76,7 +93,8 @@ def hot_spmv(
     if x.device.type == "cpu":
         from .ref import hot_spmv_ref
 
-        return hot_spmv_ref(x, idx, deg, w)
+        return hot_spmv_ref(x, idx, deg, w, max_deg=max_deg,
+                            segments=segments)
     if x.device.type != "cuda":
         raise ValueError(f"hot_spmv runs on cuda or cpu, not {x.device}")
     dev = x.device
@@ -90,18 +108,27 @@ def hot_spmv(
         require(w, "w", torch.float32, (r, width), dev)
     if x.shape[0] == 0:
         raise ValueError("x is empty")
+    walk, group = walk_group(width, max_deg, segments, dev)
+    partial = None
+    if group == 256:
+        if segments is None:
+            segments = class_segments(deg.cpu().numpy(), walk, dev)
+        partial = torch.empty((segments.shape[0],), dtype=torch.float32,
+                              device=dev)
 
     y = torch.empty((r,), dtype=torch.float32, device=dev)
-    fn = load_kernels()["hot_spmv"]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), idx.data_ptr(), idx.element_size(),
-                 deg.data_ptr(), None if w is None else w.data_ptr(),
-                 y.data_ptr(), r, width, x.shape[0], lanes_per_row(width),
-                 stream)
+    err = launch_on(dev, load_kernels()["hot_spmv"], x.data_ptr(),
+                    idx.data_ptr(), idx.element_size(), deg.data_ptr(),
+                    None if w is None else w.data_ptr(),
+                    None if segments is None else segments.data_ptr(),
+                    0 if segments is None else segments.shape[0],
+                    SEGMENT_LANES,
+                    None if partial is None else partial.data_ptr(),
+                    y.data_ptr(), r, width, x.shape[0], group, walk)
     if err != 0:
         raise RuntimeError(f"K4 hot-SpMV launch failed: cudaError {err}")
-    hot_spmv.launches += 1
+    # a 256-lane group is two launches: the pieces' blocks, then the fold
+    hot_spmv.launches += 2 if group == 256 else 1
     return y
 
 

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from .._wrap import walk_group
+
 __all__ = ["hot_spmv_ref", "ids_as_int64"]
 
 
@@ -27,8 +29,16 @@ def hot_spmv_ref(
     idx: torch.Tensor,
     deg: torch.Tensor,
     w: Optional[torch.Tensor] = None,
+    *,
+    max_deg: Optional[int] = None,
+    segments: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """y[r] = sum_{j < deg[r]} x[idx[r, j]] (* w[r, j]) — degree-masked ELL."""
+    """y[r] = sum_{j < deg[r]} x[idx[r, j]] (* w[r, j]) — degree-masked ELL.
+
+    ``max_deg`` and ``segments`` are checked as the kernel's wrapper checks
+    them (a list only where the walk takes 256 lanes, (S, 3) int32 on x's
+    device); they choose how the kernel walks, not the function."""
+    walk_group(idx.shape[1], max_deg, segments, x.device)
     width = idx.shape[1]
     vals = x[ids_as_int64(idx)]
     if w is not None:

@@ -2,10 +2,13 @@
 
 Port of ``repro.lm.embed``.  After DBG frequency reordering
 (``repro_torch.core.vocab``) the first ``hot_rows`` rows of the table are the
-hot panel and the rest the cold tail.  Every lookup is one launch of K2
-(``kernels.gather_embed``) on the card: the split gather over ``hot`` /
-``cold``; a table with no cold tail, or an unsplit one, goes through K2's
-hot-only entry.  The unembedding is a plain matrix product.
+hot panel and the rest the cold tail.  A lookup of the split table is one
+launch of K2 (``kernels.gather_embed``) on the card, nothing else: the split
+gather over ``hot`` / ``cold`` reads int32 or int64 ids through their
+stride, so a prefill step's column of the prompt needs no copy.  A table
+with no cold tail, or an unsplit one, clamps its ids first (the reference's
+function there differs from K2's zero rows) and goes through K2's hot-only
+entry.  The unembedding is a plain matrix product.
 """
 from __future__ import annotations
 
@@ -67,9 +70,10 @@ def embed_init(dims: EmbedDims, *, generator=None, device=None,
 
 
 def embed_lookup(params: nn.ParameterDict, ids: torch.Tensor) -> torch.Tensor:
-    """ids: (B, S) integer → (B, S, D), one K2 launch on the card.  Ids
-    outside the padded vocabulary are clamped as the reference's gathers
-    clamp them."""
+    """ids: (B, S) integer, any strides → (B, S, D), one K2 launch on the
+    card (after a clamp on the unsplit and hot-only tables).  Ids outside
+    the padded vocabulary are clamped as the reference's gathers clamp
+    them."""
     flat = ids.reshape(-1)
     if "table" in params:
         table = params["table"]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (marked ``cuda``; skips without a card):
 K5 (narrow classes, and rows wider than 1,024 lanes by block and split
-across blocks), K4, K1 (every lane, and only the real ones), hist_bin and
-K2 against their plain versions, the apps on
+across blocks), K4 (narrow tables, and hub rows split across blocks), K1
+(every lane, and only the real ones), hist_bin and K2 (the kept kernel and
+the bulk-copy build) against their plain versions, the apps on
 ``ell`` and ``packed`` against ``flat``, the LM's greedy decode on the card
 against the CPU, and the wrappers raising rather than falling back.
 
@@ -204,7 +205,40 @@ def test_hot_spmv_matches_plain_version(cuda, dtype, weighted):
         got = hot_spmv(x, idx, deg, wt, row_tile=r, width_tile=w)
         _close(got, hot_spmv_ref(x, idx, deg, wt))
     torch.cuda.synchronize()
-    assert hot_spmv.launches == before + 4
+    assert hot_spmv.launches == before + 5  # the 2048-slot plane is split: 2
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype,v", [(np.uint8, 200), (np.uint16, 60_000),
+                                     (np.uint32, 80_000)])
+def test_hot_spmv_split_matches_plain_version(cuda, dtype, v, weighted):
+    """K4's hub path (a 256-thread block per piece of a row, then the fold)
+    on rows of 1,025, 4,097 and 70,000 slots: with the table's segment
+    list, with ``max_deg`` alone and with nothing (the wrapper builds the
+    same list from deg), each twice, all bitwise equal, and within the sum
+    band of the plain version."""
+    from repro_torch.kernels._wrap import row_segments
+    from repro_torch.kernels.pack_spmv import hot_spmv, hot_spmv_ref
+
+    idx, deg, deg_host = _wide_tile(cuda, v, dtype, seed=8)
+    r, width = idx.shape
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.rand(v, generator=gen, device=cuda)
+    wt = (torch.rand((r, width), generator=gen, device=cuda) if weighted
+          else None)
+    segs = torch.from_numpy(row_segments(deg_host)).to(cuda)
+    want = hot_spmv_ref(x, idx, deg, wt)
+    before, calls, first = hot_spmv.launches, 0, None
+    for kw in (dict(max_deg=int(deg_host.max()), segments=segs),
+               dict(max_deg=int(deg_host.max())), {}):
+        for _ in range(2):
+            got = hot_spmv(x, idx, deg, wt, row_tile=r, width_tile=width, **kw)
+            first = got if first is None else first
+            assert torch.equal(got, first)
+            calls += 1
+    _close(first, want)
+    torch.cuda.synchronize()
+    assert hot_spmv.launches - before == 2 * calls  # pieces, then fold
 
 
 def test_ell_spmv_matches_plain_version(cuda):
@@ -390,13 +424,66 @@ def test_hot_gather_matches_plain_version(cuda, dtype, h, c, d, t):
                        torch.zeros((t, d), dtype=dt, device=cuda))
 
 
+def _k2_bulk_libraries():
+    """K2 built with Hopper's bulk-copy engine, as ``chip_smoke.py``'s
+    comparison build: element type → library."""
+    from repro_torch.kernels._build import load_libraries
+    from repro_torch.kernels.gather_embed.gather_embed import _SOURCE
+
+    return load_libraries(_SOURCE, {
+        "f32": ["-DK2_ELEM_BYTES=4", "-DK2_BULK=1"],
+        "bf16": ["-DK2_ELEM_BYTES=2", "-DK2_BULK=1"]})
+
+
+@pytest.mark.parametrize("build", ["kept", "bulk"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hot_gather_builds_match_plain_version(cuda, build, dtype):
+    """The kept kernel and the bulk-copy build, bitwise on both entry
+    points: rows of 16 KiB, of three bulk chunks, of a multiple of 16 bytes
+    in float32 only, and of 3 elements; T = 0, 1, 4 and 8,192; int32 and
+    int64 ids, contiguous and strided, past the table and below 0."""
+    import repro_torch.kernels.gather_embed.gather_embed as ge
+    from repro_torch.kernels.gather_embed import (hot_gather, hot_gather_ref,
+                                                  split_gather_ref)
+
+    dt = getattr(torch, dtype)
+    kind = "f32" if dtype == "float32" else "bf16"
+    kept = dict(ge.load_kernels())
+    if build == "bulk":
+        ge._bind({kind: _k2_bulk_libraries()[kind]})
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    before, launches = ge.hot_gather.launches, 0
+    try:
+        for h, c, d in ((64, 192, 4096), (16, 48, 6000), (16, 48, 100),
+                        (8, 24, 3)):
+            full = torch.randn((h + c, d), generator=gen, device=cuda).to(dt)
+            hot, cold = full[:h], full[h:]
+            for t in (0, 1, 4, 8192):
+                ids = torch.randint(-3, h + c + 9, (t,), generator=gen,
+                                    device=cuda, dtype=torch.int32)
+                pair = torch.stack([ids, ids.flip(0)], dim=1)
+                cases = {"int32": ids, "int64": ids.long(),
+                         "strided": pair[:, 1], "int64_strided": pair.long()[:, 0]}
+                for what, b in cases.items():
+                    label = f"{build} {dtype} D={d} T={t} {what}"
+                    assert torch.equal(hot_gather(b, hot, cold),
+                                       split_gather_ref(hot, cold, b)), label
+                    assert torch.equal(hot_gather(b, hot),
+                                       hot_gather_ref(b, hot)), label
+                    launches += 2
+        torch.cuda.synchronize()
+    finally:
+        ge._KERNELS.update(kept)
+    assert ge.hot_gather.launches - before == launches
+
+
 def test_hot_gather_raises_instead_of_falling_back(cuda):
     from repro_torch.kernels.gather_embed import hot_gather
 
     hot = torch.randn((4, 8), device=cuda)
     ids = torch.zeros(3, dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError, match="int32"):
-        hot_gather(ids.long(), hot)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        hot_gather(ids.to(torch.int16), hot)
     with pytest.raises(ValueError, match="is on cpu"):
         hot_gather(ids, hot, torch.randn((4, 8)))
     with pytest.raises(ValueError, match="is on cpu"):

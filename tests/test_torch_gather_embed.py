@@ -119,8 +119,10 @@ def test_split_gather_takes_any_integer_ids_and_empty_batches():
 def test_wrapper_checks_and_takes_plain_version_only_for_cpu_tensors():
     th, tc = torch.randn(4, 8), torch.randn(6, 8)
     ids = torch.tensor([1, 5], dtype=torch.int32)
-    with pytest.raises(TypeError, match="int32"):
-        hot_gather(ids.long(), th)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        hot_gather(ids.to(torch.int16), th)
+    with pytest.raises(ValueError, match=r"shape \(T,\)"):
+        hot_gather(ids[None], th)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         hot_gather(ids, th.double())
     with pytest.raises(TypeError, match="float32"):
@@ -137,3 +139,54 @@ def test_wrapper_checks_and_takes_plain_version_only_for_cpu_tensors():
         hot_gather(ids.to("meta"), meta)
     hot_gather(ids, th, tc)
     assert hot_gather.launches == before
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_int64_and_strided_ids_match_reference(dtype):
+    """The kernel reads int32 or int64 ids through their stride; the plain
+    path takes the same ids and is bitwise equal to ``hot_gather_pallas``
+    and ``ops.split_gather`` on their contiguous int32 copies."""
+    rng = np.random.default_rng(21)
+    h, v, d, t = 64, 256, 128, 100
+    (jh, jc), (th, tc) = _tables(rng, h, v, d, dtype)
+    ids = rng.integers(0, v, t).astype(np.int32)
+    pad = np.zeros((-t) % 64, np.int32)
+    want_split = ref_ops.split_gather(jh, jc, jnp.asarray(ids), token_tile=64)
+    want_hot = hot_gather_pallas(jnp.asarray(np.concatenate([ids, pad])), jh,
+                                 token_tile=64)[:t]
+    pair = torch.from_numpy(np.stack([ids, ids[::-1]], axis=1))  # (T, 2)
+    cases = {"int64": pair[:, 0].long().contiguous(), "strided": pair[:, 0],
+             "int64_strided": pair.long()[:, 0]}
+    assert not cases["strided"].is_contiguous()
+    for what, b in cases.items():
+        _same(want_split, split_gather(th, tc, b))
+        _same(want_hot, hot_gather(b, th))
+        assert torch.equal(hot_gather(b, th, tc),
+                           split_gather_ref(th, tc, b)), what
+
+
+def test_embed_lookup_of_a_strided_prefill_column_equals_the_reference():
+    """A prefill step embeds ``prompt[:, t:t + 1]``, a strided column: the
+    port's lookup reads it as it lies and equals ``repro.lm.embed``'s."""
+    import jax
+
+    from repro.lm import embed as ref_embed
+    from repro_torch.lm import embed
+
+    dims = ref_embed.EmbedDims(3000, 32, 256)
+    params, _ = ref_embed.embed_init(jax.random.PRNGKey(5), dims)
+    m_embed = embed.embed_init(embed.EmbedDims(3000, 32, 256), device="cpu")
+    assert set(m_embed) == set(params) and "cold" in m_embed
+    prompt = np.random.default_rng(8).integers(0, 3000, (3, 9)).astype(np.int32)
+    prompt[0, :3] = (0, 255, 256)  # the split
+    tp = torch.from_numpy(prompt)
+    with torch.no_grad():
+        for k, v in params.items():
+            m_embed[k].copy_(torch.from_numpy(np.array(v)))
+        for t in range(prompt.shape[1]):
+            col = tp[:, t:t + 1]
+            assert not col.reshape(-1).is_contiguous()
+            got = embed.embed_lookup(m_embed, col)
+            want = ref_embed.embed_lookup(params, jnp.asarray(prompt[:, t:t + 1]),
+                                          dims)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -157,3 +157,109 @@ def test_pack_spmv_over_uint8_and_uint32_tables():
                             torch.from_numpy(c.indptr),
                             torch.from_numpy(c.weights)),
                pack_spmv(x, adj))
+
+
+def _hub_table(v, dtype, weighted, seed):
+    """A synthetic hub table of 64 x 5,120 slots: degrees from 0 to the full
+    width, so its longest row passes 1,024 slots and K4 splits its rows."""
+    rng = np.random.default_rng(seed)
+    r, width = 64, 5120
+    deg = rng.integers(0, width + 1, r).astype(np.int32)
+    deg[0], deg[1], deg[2] = width, 1025, 0
+    idx = rng.integers(0, v, (r, width)).astype(dtype)
+    x = rng.normal(size=v).astype(np.float32)
+    wgt = rng.random((r, width)).astype(np.float32) if weighted else None
+    return x, idx, deg, wgt
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("v,dtype", [(777, np.uint16), (70_000, np.uint32)],
+                         ids=lambda c: str(c))
+def test_hot_spmv_split_arguments_keep_the_function(v, dtype, weighted):
+    """``max_deg`` and ``segments`` choose how the kernel walks a hub table:
+    the plain version with them equals it without them (bitwise) and
+    ``hot_spmv_pallas`` in interpret mode (within the sum band)."""
+    from repro_torch.kernels._wrap import row_segments
+
+    x, idx, deg, wgt = _hub_table(v, dtype, weighted, seed=v + weighted)
+    want = hot_spmv_pallas(jnp.asarray(x), jnp.asarray(idx), jnp.asarray(deg),
+                           None if wgt is None else jnp.asarray(wgt),
+                           row_tile=64, width_tile=128)
+    tx, tdeg = torch.from_numpy(x), torch.from_numpy(deg)
+    t_idx = to_device(idx, "cpu")
+    tw = None if wgt is None else torch.from_numpy(wgt)
+    plain = hot_spmv(tx, t_idx, tdeg, tw)
+    segs = torch.from_numpy(row_segments(deg))
+    assert int(segs.shape[0]) > idx.shape[0]  # the long rows are cut
+    for kw in (dict(max_deg=int(deg.max()), segments=segs),
+               dict(max_deg=int(deg.max())), dict(segments=segs)):
+        got = hot_spmv(tx, t_idx, tdeg, tw, **kw)
+        assert torch.equal(got, plain)
+        _close(want, got)
+
+
+def test_pack_spmv_hands_k4_the_longest_row_and_the_segment_list(monkeypatch):
+    """Every K4 call of ``pack_spmv`` gets its table's ``max_deg`` and, for a
+    table whose longest row passes 1,024 slots, ``row_segments`` of the
+    degrees padded to the tile (padding rows have degree 0); the result is
+    still the CSR oracle's."""
+    from repro_torch.graph import csr
+    from repro_torch.kernels._wrap import lanes_per_row, row_segments
+    from repro_torch.kernels.pack_spmv import ops
+    from repro_torch.pack import pack_graph
+
+    rng = np.random.default_rng(11)
+    v, e = 20_000, 240_000
+    src, dst = rng.integers(0, v, e), rng.integers(0, v, e)
+    dst[::10] = rng.integers(0, 12, e // 10)  # hub rows of ~2,000 in-edges
+    g = csr.from_edges(src, dst, v)
+    adj = pack_graph(g).in_adj
+    calls = []
+    real = ops.hot_spmv
+
+    def spy(x, idx, deg, w=None, **kw):
+        calls.append((idx.shape, deg.clone(), kw))
+        return real(x, idx, deg, w, **kw)
+
+    monkeypatch.setattr(ops, "hot_spmv", spy)
+    x = torch.from_numpy(rng.random(v).astype(np.float32))
+    y = ops.pack_spmv(x, adj)
+    hot = [h for h in adj.hot if h.num_rows and h.stride]
+    assert len(calls) == len(hot)
+    split = 0
+    for (shape, deg, kw), h in zip(calls, hot):
+        padded = np.zeros(shape[0], np.int64)
+        padded[:h.num_rows] = h.deg
+        np.testing.assert_array_equal(deg.numpy(), padded)
+        assert kw["max_deg"] == int(h.deg.max())
+        if lanes_per_row(kw["max_deg"]) == 256:
+            np.testing.assert_array_equal(kw["segments"].numpy(),
+                                          row_segments(padded))
+            split += 1
+        else:
+            assert kw["segments"] is None
+    assert split >= 1
+    c = g.in_csr
+    _close(csr_spmv_ref(x, torch.from_numpy(c.indices),
+                        torch.from_numpy(c.indptr), torch.ones(c.num_edges)),
+           y)
+
+
+def test_hot_spmv_rejects_a_list_on_a_narrow_table_or_of_the_wrong_shape():
+    from repro_torch.kernels._wrap import row_segments
+
+    x, idx, deg, _ = _hub_table(777, np.uint16, False, seed=3)
+    tx, t_idx, tdeg = (torch.from_numpy(x), torch.from_numpy(idx),
+                       torch.from_numpy(deg))
+    segs = torch.from_numpy(row_segments(deg))
+    with pytest.raises(ValueError, match="narrow"):
+        hot_spmv(tx, t_idx, tdeg, max_deg=1024, segments=segs)
+    with pytest.raises(ValueError, match="narrow"):
+        hot_spmv(tx, t_idx[:, :1024], tdeg.clamp(max=1024), segments=segs,
+                 width_tile=128)
+    with pytest.raises(ValueError, match="shape"):
+        hot_spmv(tx, t_idx, tdeg, segments=segs[:, :2].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        hot_spmv(tx, t_idx, tdeg, segments=segs.reshape(-1))
+    with pytest.raises(TypeError, match="int32"):
+        hot_spmv(tx, t_idx, tdeg, segments=segs.long())
