@@ -11,9 +11,9 @@ Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit from ``nvidia-smi``;
   2. build: compile (or load) the libraries of all five kernels — K5, K4,
      K1, hist_bin and K2 — the two ``NARROW_BUILDS`` of K5's sum and the
-     four ``K2_BUILDS`` (K2 on the bulk-copy engine, float32 and bfloat16;
-     the float32 kernel without its streaming stores, and without its L2
-     policy), with every ``nvcc`` started together;
+     three ``K2_BUILDS`` (K2 on the bulk-copy engine, float32 and bfloat16;
+     the float32 kernel without its streaming stores), with every ``nvcc``
+     started together;
   3. K5 vs its plain version on the card, over every static variant, on all
      rows of every tile class of the ``kr`` registry graph at ``small`` scale
      (uint16 ids) and of the main-path graph (int32 ids), a class wider
@@ -107,11 +107,10 @@ SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of a device-only time
 NARROW_BUILDS = {"batched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=0"],
                  "unbatched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=32"]}
 # K2 built with Hopper's bulk-copy engine (both element types), and the
-# kept float32 kernel without each of its cache hints (phases 9 and 12)
+# kept float32 kernel without its streaming stores (phases 9 and 12)
 K2_BUILDS = {"bulk_f32": ["-DK2_ELEM_BYTES=4", "-DK2_BULK=1"],
              "bulk_bf16": ["-DK2_ELEM_BYTES=2", "-DK2_BULK=1"],
-             "plain_stores": ["-DK2_ELEM_BYTES=4", "-DK2_STREAM_STORES=0"],
-             "no_l2_policy": ["-DK2_ELEM_BYTES=4", "-DK2_L2_POLICY=0"]}
+             "plain_stores": ["-DK2_ELEM_BYTES=4", "-DK2_STREAM_STORES=0"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
@@ -1387,8 +1386,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    name = torch.cuda.get_device_name(0)
-    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    card = torch.cuda.get_device_name(0)
+    log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1576,8 +1575,8 @@ def main() -> int:
             f"{m['library_device_ms']:.4f}), bound {m['bound_ms']:.5f}"
             f" ms ({m['bound_by']}; {m['distinct_rows']} distinct rows; "
             f"{m['bound_ms_t_rows']:.5f} ms if every row were read)")
-        for name, b in m["builds"].items():
-            log(f"  K2's {name} build, bitwise equal to the kept kernel: "
+        for build, b in m["builds"].items():
+            log(f"  K2's {build} build, bitwise equal to the kept kernel: "
                 f"{b['ms']:.4f} ms (device alone {b['device_ms']:.4f})")
     m = k2["decode"]
     log(f"  host time per call at the decode call (1,000 calls, no sync): "
@@ -1631,16 +1630,17 @@ def main() -> int:
             entry["padded_ms"] = m["padded_ms"]
             entry["padded_bound_ms"] = m["padded_bound_ms"]
         if "at_zipf_8192" in m:
+            entry["builds"] = m["builds"]
             entry["at_zipf_8192"] = {k: m["at_zipf_8192"][k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms",
                 "library_device_ms", "bound_ms", "bound_by",
-                "distinct_rows")}
+                "distinct_rows", "builds")}
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0
 
 

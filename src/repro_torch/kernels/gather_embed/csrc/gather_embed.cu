@@ -34,17 +34,20 @@
 //    16 bytes and every table and the output are 16-byte aligned; else
 //    elements) are strided over the 256 threads, kBatch per thread, all
 //    loads issued before the stores;
-//  * stores are streaming (st.global.cs, K2_STREAM_STORES): the output is
-//    never re-read by this kernel, so it should not evict the hot rows from
-//    L2; hot-row loads carry an L2 evict_last policy and cold-row loads
-//    evict_first (K2_L2_POLICY).
+//  * stores are streaming (st.global.cs; -DK2_STREAM_STORES=0 builds plain
+//    ones for comparison): the output is never re-read by this kernel, so
+//    it should not evict the hot rows from L2.  On the H100 at 8,192 Zipf
+//    ids they take ~2% off the device time; an L2 evict_last / evict_first
+//    policy on hot / cold loads took nothing off and was dropped (see
+//    PERF.md).
 //
 // A comparison build, -DK2_BULK=1, copies each row with Hopper's bulk-copy
 // engine instead: one thread of a one-warp block issues cp.async.bulk
 // global -> shared on an mbarrier, then shared -> global, kStages chunks in
 // flight per block (16-byte rows and pointers only; the rest take the
 // element kernel above).  chip_smoke.py builds it beside the kept kernel
-// and times both.
+// and times both; on the H100 it took ~12% more device time at 8,192 Zipf
+// ids, so it is not the kept kernel (see PERF.md).
 //
 // The C entries return cudaGetLastError() after the launch; the launch is on
 // the caller's stream and allocates nothing.
@@ -57,9 +60,6 @@
 #endif
 #ifndef K2_STREAM_STORES
 #define K2_STREAM_STORES 1
-#endif
-#ifndef K2_L2_POLICY
-#define K2_L2_POLICY 1
 #endif
 #ifndef K2_BULK
 #define K2_BULK 0
@@ -77,53 +77,6 @@ using Elem = uint16_t;  // bfloat16, copied as its bits
 
 constexpr int kThreads = 256;
 constexpr int kBatch = 4;  // units per thread in flight: a 16 KiB row at once
-
-// An L2 access policy for every line a load touches.
-__device__ __forceinline__ uint64_t l2_policy(bool keep) {
-  uint64_t p;
-  if (keep) {
-    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
-  } else {
-    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
-  }
-  return p;
-}
-
-__device__ __forceinline__ uint4 load(const uint4* p, uint64_t policy) {
-#if K2_L2_POLICY
-  uint4 v;
-  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p), "l"(policy));
-  return v;
-#else
-  return __ldg(p);
-#endif
-}
-
-__device__ __forceinline__ uint32_t load(const uint32_t* p, uint64_t policy) {
-#if K2_L2_POLICY
-  uint32_t v;
-  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
-      : "=r"(v)
-      : "l"(p), "l"(policy));
-  return v;
-#else
-  return __ldg(p);
-#endif
-}
-
-__device__ __forceinline__ uint16_t load(const uint16_t* p, uint64_t policy) {
-#if K2_L2_POLICY
-  uint16_t v;
-  asm("ld.global.nc.L2::cache_hint.u16 %0, [%1], %2;"
-      : "=h"(v)
-      : "l"(p), "l"(policy));
-  return v;
-#else
-  return __ldg(p);
-#endif
-}
 
 template <typename Unit>
 __device__ __forceinline__ void store(Unit* p, Unit v) {
@@ -162,13 +115,12 @@ row_kernel(const IdT* __restrict__ ids, int64_t id_stride,
   const Unit* src =
       r < 0 ? nullptr : (is_hot ? hot : cold) + r * static_cast<int64_t>(units);
   Unit* dst = out + t * static_cast<int64_t>(units);
-  const uint64_t policy = l2_policy(is_hot);
   for (int j0 = threadIdx.x; j0 < units; j0 += kThreads * kBatch) {
     Unit v[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int j = j0 + b * kThreads;
-      v[b] = src != nullptr && j < units ? load(src + j, policy) : Unit{};
+      v[b] = src != nullptr && j < units ? __ldg(src + j) : Unit{};
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
