@@ -114,6 +114,7 @@ K2_BUILDS = {"bulk_f32": ["-DK2_ELEM_BYTES=4", "-DK2_BULK=1"],
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
+K2_MODULE = "gather_embed.gather_embed"  # K2's wrapper, rebound to a build
 
 
 def log(msg: str) -> None:
@@ -436,18 +437,19 @@ def _events_ms(fn, reps, device_only=False):
     return statistics.median(times)
 
 
-def _with_k5_sum(lib, fn):
-    """``fn()`` with K5's sum entry taken from ``lib`` (one of
-    ``NARROW_BUILDS``), then the kept library's entry back."""
+def _with_build(module, libs, fn):
+    """``fn()`` with the wrapper module ``module`` (under
+    ``repro_torch.kernels``) bound to ``libs`` (variant → a comparison
+    build's library), then its kept entries back."""
     from importlib import import_module
 
-    em = import_module("repro_torch.kernels.edge_map.edge_map")
-    kept = em.load_kernels()["sum"]
-    em._bind({"sum": lib})
+    m = import_module(f"repro_torch.kernels.{module}")
+    kept = dict(m.load_kernels())
+    m._bind(libs)
     try:
         return fn()
     finally:
-        em._KERNELS["sum"] = kept
+        m._KERNELS.update(kept)
 
 
 def time_pull(flat, ell, reps, narrow_builds):
@@ -518,13 +520,14 @@ def time_pull(flat, ell, reps, narrow_builds):
         else:
             c["lanes_per_thread"] = -(-w // group)
             for name, lib in narrow_builds.items():
-                got = _with_k5_sum(lib, lambda t=t: call(t, None))
+                got = _with_build("edge_map.edge_map", {"sum": lib},
+                                  lambda t=t: call(t, None))
                 if not torch.equal(got, kept):
                     raise AssertionError(f"class {(r, w)}: the {name} build "
                                          "differs from the kept kernel")
-                c[f"{name}_ms"] = _with_k5_sum(
-                    lib, lambda t=t: _events_ms(lambda: call(t, None), reps,
-                                                True))
+                c[f"{name}_ms"] = _with_build(
+                    "edge_map.edge_map", {"sum": lib},
+                    lambda t=t: _events_ms(lambda: call(t, None), reps, True))
         per_class.append(c)
     ga = ell.ga
     with warnings.catch_warnings():  # "sparse CSR support is in beta"
@@ -1011,20 +1014,6 @@ def _bitwise(got, want, what):
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def _with_k2(lib, kind, fn):
-    """``fn()`` with K2's ``kind`` ("f32" or "bf16") entries taken from
-    ``lib`` (one of ``K2_BUILDS``), then the kept library's entries back."""
-    from importlib import import_module
-
-    ge = import_module("repro_torch.kernels.gather_embed.gather_embed")
-    kept = dict(ge.load_kernels())
-    ge._bind({kind: lib})
-    try:
-        return fn()
-    finally:
-        ge._KERNELS.update(kept)
-
-
 def k2_grid(device, k2_builds):
     """K2 against its plain version, both entry points, float32 and
     bfloat16, at reduced and at Yi-9B widths, int32 and int64 ids,
@@ -1066,8 +1055,9 @@ def k2_grid(device, k2_builds):
                     def both(b=b):
                         return hot_gather(b, hot, cold), hot_gather(b, hot)
 
-                    split, hot_only = (both() if lib is None
-                                       else _with_k2(lib, kind, both))
+                    split, hot_only = (
+                        both() if lib is None
+                        else _with_build(K2_MODULE, {kind: lib}, both))
                     err = max(err, _bitwise(split,
                                             split_gather_ref(hot, cold, b),
                                             label + " split"),
@@ -1339,9 +1329,10 @@ def time_k2(model, served, reps, k2_builds):
                 bound_ms=bound_ms, bound_by=bound_by,
                 launches_per_call=per_call, max_abs_err=err, builds={})
             for name, lib in builds.items():
-                _bitwise(_with_k2(lib, kind, kernel), got,
+                _bitwise(_with_build(K2_MODULE, {kind: lib}, kernel), got,
                          f"K2's {name} build ({label}) vs the kept kernel")
-                out[label]["builds"][name] = _with_k2(lib, kind, lambda: dict(
+                out[label]["builds"][name] = _with_build(
+                    K2_MODULE, {kind: lib}, lambda: dict(
                     ms=_events_ms(kernel, reps),
                     device_ms=_events_ms(kernel, reps, True)))
             out[label]["kept_again_device_ms"] = _events_ms(kernel, reps,
