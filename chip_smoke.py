@@ -11,9 +11,8 @@ Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit from ``nvidia-smi``;
   2. build: compile (or load) the libraries of all five kernels — K5, K4,
      K1, hist_bin and K2 — the two ``NARROW_BUILDS`` of K5's sum and the
-     three ``K2_BUILDS`` (K2 on the bulk-copy engine, float32 and bfloat16;
-     the float32 kernel without its streaming stores), with every ``nvcc``
-     started together;
+     two ``K2_BUILDS`` (K2 on the bulk-copy engine, float32 and bfloat16),
+     with every ``nvcc`` started together;
   3. K5 vs its plain version on the card, over every static variant, on all
      rows of every tile class of the ``kr`` registry graph at ``small`` scale
      (uint16 ids) and of the main-path graph (int32 ids), a class wider
@@ -72,7 +71,7 @@ Phases (any failure raises, and the script exits non-zero):
      served ids equals its plain version bitwise;
  12. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
      the plain version, ``F.embedding`` over the joined table, the bound and
-     the float32 ``K2_BUILDS`` (each bitwise equal to the kept kernel), from
+     the float32 bulk-copy build (bitwise equal to the kept kernel), from
      an idle device and on the device alone; the wrapper's host time per
      call; and the device launches of one ``embed_lookup`` at a prefill and
      at a decode step under ``torch.profiler``, which must be 1 each.
@@ -106,11 +105,9 @@ SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of a device-only time
 # K5's sum built with the narrow kernel's batch threshold forced (phase 5)
 NARROW_BUILDS = {"batched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=0"],
                  "unbatched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=32"]}
-# K2 built with Hopper's bulk-copy engine (both element types), and the
-# kept float32 kernel without its streaming stores (phases 9 and 12)
+# K2 built with Hopper's bulk-copy engine, both element types (phases 9, 12)
 K2_BUILDS = {"bulk_f32": ["-DK2_ELEM_BYTES=4", "-DK2_BULK=1"],
-             "bulk_bf16": ["-DK2_ELEM_BYTES=2", "-DK2_BULK=1"],
-             "plain_stores": ["-DK2_ELEM_BYTES=4", "-DK2_STREAM_STORES=0"]}
+             "bulk_bf16": ["-DK2_ELEM_BYTES=2", "-DK2_BULK=1"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing

@@ -34,12 +34,11 @@
 //    16 bytes and every table and the output are 16-byte aligned; else
 //    elements) are strided over the 256 threads, kBatch per thread, all
 //    loads issued before the stores;
-//  * stores are streaming (st.global.cs; -DK2_STREAM_STORES=0 builds plain
-//    ones for comparison): the output is never re-read by this kernel, so
-//    it should not evict the hot rows from L2.  On the H100 at 8,192 Zipf
-//    ids they take ~2% off the device time; an L2 evict_last / evict_first
-//    policy on hot / cold loads took nothing off and was dropped (see
-//    PERF.md).
+//  * stores are streaming (st.global.cs): the output is never re-read by
+//    this kernel, so it should not evict the hot rows from L2.  On the H100
+//    at 8,192 Zipf ids they took ~2% off the device time against plain
+//    stores; an L2 evict_last / evict_first policy on hot / cold loads took
+//    nothing off and was dropped (see PERF.md).
 //
 // A comparison build, -DK2_BULK=1, copies each row with Hopper's bulk-copy
 // engine instead: one thread of a one-warp block issues cp.async.bulk
@@ -58,9 +57,6 @@
 #ifndef K2_ELEM_BYTES
 #define K2_ELEM_BYTES 4
 #endif
-#ifndef K2_STREAM_STORES
-#define K2_STREAM_STORES 1
-#endif
 #ifndef K2_BULK
 #define K2_BULK 0
 #endif
@@ -77,15 +73,6 @@ using Elem = uint16_t;  // bfloat16, copied as its bits
 
 constexpr int kThreads = 256;
 constexpr int kBatch = 4;  // units per thread in flight: a 16 KiB row at once
-
-template <typename Unit>
-__device__ __forceinline__ void store(Unit* p, Unit v) {
-#if K2_STREAM_STORES
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
-}
 
 // The table row token t reads (-1: a zero row), and whether it is hot.
 template <typename IdT, bool kSplit>
@@ -125,7 +112,7 @@ row_kernel(const IdT* __restrict__ ids, int64_t id_stride,
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       const int j = j0 + b * kThreads;
-      if (j < units) store(dst + j, v[b]);
+      if (j < units) __stcs(dst + j, v[b]);
     }
   }
 }
