@@ -976,6 +976,11 @@ def time_hist_bin(pk, reps):
         group_reorder(pk["out_deg"], pk["spec"])
         host.append(time.perf_counter() - t)
     bound_ms, bound_by = _bound(v * 8 + k * 8, v * k)
+    # dbg_bin must read the degrees and write the groups and the int64
+    # mapping: 16 bytes per vertex
+    dbg_bound_ms, _ = _bound(v * 16 + k * 8, v * k)
+    hist_ops = _device_launches(lambda: hist_bin(deg_t, b_t))
+    dbg_ops = _device_launches(lambda: dbg_bin(deg_t, b_t))
     return dict(ms=_events_ms(lambda: hist_bin(deg_t, b_t), reps),
                 device_ms=_events_ms(lambda: hist_bin(deg_t, b_t), reps, True),
                 plain_ms=_events_ms(lambda: hist_bin_ref(deg_t, b_t), reps),
@@ -983,7 +988,13 @@ def time_hist_bin(pk, reps):
                 library_device_ms=_events_ms(library, reps, True),
                 launches_per_call=per_call, max_abs_err=err,
                 bound_ms=bound_ms, bound_by=bound_by,
+                device_ops_per_call=len(hist_ops), device_ops=hist_ops,
                 dbg_bin_ms=_events_ms(lambda: dbg_bin(deg_t, b_t), reps),
+                dbg_bin_device_ms=_events_ms(lambda: dbg_bin(deg_t, b_t), reps,
+                                             True),
+                dbg_bin_bound_ms=dbg_bound_ms,
+                dbg_bin_device_ops_per_call=len(dbg_ops),
+                dbg_bin_device_ops=dbg_ops,
                 host_mapping_ms=statistics.median(host) * 1e3)
 
 
@@ -1513,9 +1524,13 @@ def main() -> int:
         f"{hb['device_ms']:.4f}), plain "
         f"{hb['plain_ms']:.4f} ms, searchsorted + bincount "
         f"{hb['library_ms']:.4f} ms, bound {hb['bound_ms']:.4f} ms; device "
-        f"DBG (dbg_bin) {hb['dbg_bin_ms']:.4f} ms vs host mapping "
-        f"(group_reorder) {hb['host_mapping_ms']:.2f} ms "
+        f"DBG (dbg_bin) {hb['dbg_bin_ms']:.4f} ms (device alone "
+        f"{hb['dbg_bin_device_ms']:.4f}, bound {hb['dbg_bin_bound_ms']:.4f}) "
+        f"vs host mapping (group_reorder) {hb['host_mapping_ms']:.2f} ms "
         f"({time.perf_counter() - t0:.1f} s)")
+    for what, names in (("hist_bin", hb["device_ops"]),
+                        ("dbg_bin", hb["dbg_bin_device_ops"])):
+        log(f"  one {what} call: {len(names)} device operation(s) {names}")
 
     # 9. K2 vs plain, once the graph state has left the card
     pk_err = pk["max_err"]
@@ -1614,6 +1629,11 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "library_device_ms": m["library_device_ms"],
         }
+        if "dbg_bin_ms" in m:  # hist_bin: its caller, the device DBG
+            for key in ("device_ops_per_call", "dbg_bin_ms",
+                        "dbg_bin_device_ms", "dbg_bin_bound_ms",
+                        "dbg_bin_device_ops_per_call"):
+                entry[key] = m[key]
         if "padded_ms" in m:  # K1 without the degrees: every lane
             entry["padded_ms"] = m["padded_ms"]
             entry["padded_bound_ms"] = m["padded_bound_ms"]
