@@ -9,10 +9,10 @@ use.  It imports nothing of JAX and nothing of the JAX package ``repro``.
 
 Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit from ``nvidia-smi``;
-  2. build: compile (or load) the libraries of all five kernels — K5, K4,
-     K1, hist_bin and K2 — the two ``NARROW_BUILDS`` of K5's sum and the
-     two ``K2_BUILDS`` (K2 on the bulk-copy engine, float32 and bfloat16),
-     with every ``nvcc`` started together;
+  2. build: compile (or load) the libraries of all five TPU kernels' ports
+     — K5, K4, K1, hist_bin (with the stable-rank kernel in its source) and
+     K2 — and the two ``NARROW_BUILDS`` of K5's sum, with every ``nvcc``
+     started together;
   3. K5 vs its plain version on the card, over every static variant, on all
      rows of every tile class of the ``kr`` registry graph at ``small`` scale
      (uint16 ids) and of the main-path graph (int32 ids), a class wider
@@ -36,8 +36,9 @@ Phases (any failure raises, and the script exits non-zero):
   6. the packed path on the same graphs: ``backend="packed"`` (hot slot
      tables + decoded cold tiles) for the five apps against ``flat``,
      ``pack_spmv`` (K4) and ``dbg_spmv`` (K1) against the flat pull and the
-     CSR oracle, and ``dbg_bin`` (hist_bin) against the host DBG mapping,
-     bitwise; every kernel's launch count, read from zero, must be positive;
+     CSR oracle, and ``dbg_bin`` (hist_bin, then the stable-rank kernel)
+     against the host DBG mapping, bitwise; every kernel's launch count,
+     read from zero, must be positive;
   7. K4, K1 and hist_bin vs their plain versions on the card at the packed
      path's shapes: K4 on every hot table of the main-path graph (uint32
      ids), of ``kr``/small (uint16) and of a 256-vertex graph (uint8), each
@@ -46,19 +47,24 @@ Phases (any failure raises, and the script exits non-zero):
      wrapper builds, bitwise; K1 on every DBG group, walking the degrees
      and every lane, each against the plain version and the two bitwise
      against each other; hist_bin on the out-degrees, also with bounds that
-     do not end in 0;
-  8. times of K4, K1 and hist_bin at their packed-path calls, beside their
-     plain versions, one library call each and their bounds (K1 both ways,
-     per DBG group, with the bound over the real lanes and over the padded
-     planes), each from an idle device and on the device alone; K4 per hot
-     table too, with its lane group, pieces and launches (2 for a split
-     table, else 1);
-  9. (the graph state freed) K2 vs its plain version on the card, bitwise,
-     the kept kernel and the bulk-copy build: ``hot_gather`` and the split
-     gather, float32 and bfloat16, at reduced widths, at Yi-9B's (H 8192, C
-     57,344, D 4096) on 8,192 DBG-remapped Zipf ids, and at a T that is not
-     a multiple of 32; all-hot and all-cold batches, int64 and strided ids
-     too;
+     do not end in 0; ``dbg_bin`` against the plain path (``hist_bin_ref``,
+     then ``stable_mapping_ref``) bitwise, and the stable mapping from the
+     plain groups alone, at V of 0, 1, a tile and a tile ± 1, 3 tiles + 5,
+     2^21 and 2^21 + 5, K of 1, 7, 8 and 32, every vertex in one group;
+  8. times of K4, K1, hist_bin and the stable rank at their packed-path
+     calls, beside their plain versions, one library call each and their
+     bounds (K1 both ways, per DBG group, with the bound over the real
+     lanes and over the padded planes), each from an idle device and on the
+     device alone; K4 per hot table too, with its lane group, pieces and
+     launches (2 for a split table, else 1); the whole ``dbg_bin`` both
+     ways beside its bound, its plain path and a library path
+     (``searchsorted``, a stable ``argsort`` inverted with ``scatter_``),
+     and its launches (one of each kernel);
+  9. (the graph state freed) K2 vs its plain version on the card, bitwise:
+     ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
+     widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
+     Zipf ids, and at a T that is not a multiple of 32; all-hot and
+     all-cold batches, int64 and strided ids too;
  10. the LM serving path at reduced size, card against CPU: reduced Yi-9B
      (GQA) and reduced OLMo-1B, same weights, ``generate`` (batch 2, prompt
      8, 8 new): logits of every step within rtol 1e-4, atol 1e-5, tokens
@@ -70,11 +76,13 @@ Phases (any failure raises, and the script exits non-zero):
      vocabulary, the last logits are finite, and the split gather of the
      served ids equals its plain version bitwise;
  12. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
-     the plain version, ``F.embedding`` over the joined table, the bound and
-     the float32 bulk-copy build (bitwise equal to the kept kernel), from
-     an idle device and on the device alone; the wrapper's host time per
-     call; and the device launches of one ``embed_lookup`` at a prefill and
-     at a decode step under ``torch.profiler``, which must be 1 each.
+     the plain version, ``F.embedding`` over the joined table and the
+     bound, from an idle device and on the device alone; the wrapper's host
+     time per call; and, under ``torch.profiler``, the device operations
+     of one ``embed_lookup`` at a prefill and at a decode step (1 each) and
+     of one hist_bin (1) and one dbg_bin call (2) at phase 8's call, read
+     together here: in runs that first profiled in phase 8, phase 12's
+     profile of the prefill lookup held no device event.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
 device and ``device_ms`` on the device alone, its library call's
@@ -82,7 +90,10 @@ device and ``device_ms`` on the device alone, its library call's
 version ``max_abs_err``, the TPU kernel it replaces ``replaces``, its
 launches on each path ``launches_by_path``; K1's ``ms`` and ``bound_ms`` are
 its degree walk's, ``padded_ms`` and ``padded_bound_ms`` its every-lane
-path's) and, as its last line,
+path's; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG, and
+``device_ops_per_call`` counts its device operations; ``stable_rank``
+replaces no TPU kernel, and its ``replaces`` names the reference's XLA
+stable mapping) and, as its last line,
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -105,13 +116,9 @@ SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of a device-only time
 # K5's sum built with the narrow kernel's batch threshold forced (phase 5)
 NARROW_BUILDS = {"batched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=0"],
                  "unbatched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=32"]}
-# K2 built with Hopper's bulk-copy engine, both element types (phases 9, 12)
-K2_BUILDS = {"bulk_f32": ["-DK2_ELEM_BYTES=4", "-DK2_BULK=1"],
-             "bulk_bf16": ["-DK2_ELEM_BYTES=2", "-DK2_BULK=1"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
-K2_MODULE = "gather_embed.gather_embed"  # K2's wrapper, rebound to a build
 
 
 def log(msg: str) -> None:
@@ -135,7 +142,7 @@ def _wrappers():
     from repro_torch.kernels.csr_spmv import ell_spmv
     from repro_torch.kernels.edge_map import ell_edge_map
     from repro_torch.kernels.gather_embed import hot_gather
-    from repro_torch.kernels.hist_bin import hist_bin
+    from repro_torch.kernels.hist_bin import hist_bin, stable_rank
     from repro_torch.kernels.pack_spmv import hot_spmv
 
     k = "src/repro_torch/kernels"
@@ -148,6 +155,9 @@ def _wrappers():
                      "src/repro/kernels/csr_spmv/csr_spmv.py:47"),
         "hist_bin": (hist_bin, f"{k}/hist_bin/csrc/hist_bin.cu",
                      "src/repro/kernels/hist_bin/hist_bin.py:49"),
+        # no TPU kernel: the XLA stable mapping beside hist_bin_pallas
+        "stable_rank": (stable_rank, f"{k}/hist_bin/csrc/hist_bin.cu",
+                        "src/repro/kernels/hist_bin/ops.py:30"),
         "hot_gather": (hot_gather, f"{k}/gather_embed/csrc/gather_embed.cu",
                        "src/repro/kernels/gather_embed/gather_embed.py:36"),
     }
@@ -767,7 +777,56 @@ def new_kernel_grid(pk, small, device):
     _sync()
     log("  hist_bin vs plain: groups and histograms bitwise equal, bounds "
         f"{b_t.tolist()} and {b_t[:-1].tolist()}")
+    log(f"  dbg_bin vs plain: {dbg_bin_grid(deg_t, b_t)}")
     return err4, err1, widths, split
+
+
+def dbg_bin_grid(deg_t, b_t):
+    """``dbg_bin`` on the card (the binning kernel, then the rank kernel)
+    against the plain path (``hist_bin_ref``, then ``stable_mapping_ref``)
+    bitwise, and ``stable_mapping_from_groups`` on the plain groups, on
+    shapes that stress the tiles: V of 0, 1, a tile and a tile ± 1, the
+    main-path graph's 2^21 and 2^21 + 5; K = 1, 8 (DBG), 7 (ending above
+    0) and 32; every vertex in one group.  Returns a summary line."""
+    import torch
+
+    from repro_torch.kernels.hist_bin import (TILE, dbg_bin, hist_bin_ref,
+                                              stable_mapping_from_groups,
+                                              stable_mapping_ref)
+
+    dev = deg_t.device
+    v = deg_t.shape[0]
+    wide = torch.arange(31 * 16, -1, -16, dtype=torch.int32, device=dev)
+    median = deg_t.float().median().int().reshape(1)
+    longer = torch.cat([deg_t, deg_t[:5]])
+    cases = [(deg_t, b_t), (deg_t, b_t[:-1].contiguous()), (deg_t, wide),
+             (deg_t, median), (longer, b_t), (longer, wide),
+             (torch.zeros(v, dtype=torch.int32, device=dev), b_t),  # all last
+             (deg_t + int(b_t.max()), b_t)]                         # all first
+    for n in (0, 1, TILE - 1, TILE, TILE + 1, 3 * TILE + 5):
+        for b in (b_t, wide, median):
+            cases.append((deg_t[:n], b))
+    shapes = set()
+    for d, b in cases:
+        k = b.shape[0]
+        what = f"dbg_bin at V = {d.shape[0]}, K = {k}"
+        mapping, groups, hist = dbg_bin(d, b)
+        ref_groups, ref_hist = hist_bin_ref(d, b)
+        ref_mapping = stable_mapping_ref(ref_groups, k)
+        for got, want, name in ((groups, ref_groups, "groups"),
+                                (hist, ref_hist, "histogram"),
+                                (mapping, ref_mapping, "mapping"),
+                                (stable_mapping_from_groups(ref_groups, k),
+                                 ref_mapping, "stable_mapping_from_groups")):
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                bad = int((got != want).sum()) if got.shape == want.shape else -1
+                raise AssertionError(f"{what}: {name} differs from the plain "
+                                     f"path at {bad} places (must be bitwise)")
+        shapes.add((d.shape[0], k))
+    _sync()
+    return (f"{len(cases)} cases bitwise equal (mapping, groups, histogram, "
+            f"and the mapping from the plain groups alone), (V, K) in "
+            f"{sorted(shapes)}")
 
 
 # ---------------------------------------------------------------- phase 8
@@ -939,23 +998,42 @@ def time_ell_spmv(pk, reps):
 
 
 def time_hist_bin(pk, reps):
-    """hist_bin at ``dbg_bin``'s call (the main-path graph's out-degrees);
-    ``torch.searchsorted`` + ``torch.bincount`` as the yardstick; and the
-    whole device DBG (``dbg_bin``) beside the host mapping."""
+    """hist_bin at ``dbg_bin``'s call (the main-path graph's out-degrees),
+    ``torch.searchsorted`` + ``torch.bincount`` as its yardstick; the whole
+    device DBG (``dbg_bin``: hist_bin, then the rank kernel) beside its
+    plain path, a library path (``searchsorted``, a stable ``argsort``
+    inverted with ``scatter_``) and the host mapping; the rank kernel
+    alone; each from an idle device and on the device alone.  (Phase 12
+    lists the device operations of one hist_bin and one dbg_bin call.)"""
     import statistics
 
     import torch
 
     from repro_torch.core.reorder import group_reorder
-    from repro_torch.kernels.hist_bin import dbg_bin, hist_bin, hist_bin_ref
+    from repro_torch.kernels.hist_bin import (bin_tiles, dbg_bin, hist_bin,
+                                              hist_bin_ref, stable_mapping_ref,
+                                              stable_rank)
 
     deg_t, b_t = pk["deg_t"], pk["b_t"]
     v, k = deg_t.shape[0], b_t.shape[0]
     asc = b_t.flip(0).contiguous()
+    ids = torch.arange(v, device=deg_t.device)
 
     def library():
         g = (k - 1) - (torch.searchsorted(asc, deg_t, right=True) - 1)
         return g, torch.bincount(g, minlength=k)
+
+    def library_rank(g):
+        return torch.empty_like(ids).scatter_(
+            0, torch.argsort(g, stable=True), ids)
+
+    def dbg_library():
+        return library_rank((k - 1) - (torch.searchsorted(
+            asc, deg_t, right=True) - 1))
+
+    def dbg_plain():
+        g, _ = hist_bin_ref(deg_t, b_t)
+        return stable_mapping_ref(g, k)
 
     n0 = hist_bin.launches
     groups, hist = hist_bin(deg_t, b_t)
@@ -970,6 +1048,19 @@ def time_hist_bin(pk, reps):
     if not (torch.equal(lg.to(torch.int32), groups)
             and torch.equal(lh.to(torch.int32), hist)):
         raise AssertionError("searchsorted + bincount disagree with hist_bin")
+    n0, r0 = hist_bin.launches, stable_rank.launches
+    mapping, _, _ = dbg_bin(deg_t, b_t)
+    dbg_launches = (hist_bin.launches - n0, stable_rank.launches - r0)
+    if dbg_launches != (1, 1):
+        raise AssertionError(f"dbg_bin launched (hist_bin, stable_rank) "
+                             f"{dbg_launches} times, not (1, 1)")
+    ref_mapping = dbg_plain()
+    for got, name in ((mapping, "dbg_bin"), (dbg_library(), "the library "
+                                                "path (argsort + scatter_)")):
+        if not torch.equal(got, ref_mapping):
+            raise AssertionError(f"timed {name} differs from the plain "
+                                 "mapping (must be bitwise)")
+    _, hist_t, tiles = bin_tiles(deg_t, b_t, offsets=True)
     host = []
     for _ in range(3):
         t = time.perf_counter()
@@ -977,10 +1068,27 @@ def time_hist_bin(pk, reps):
         host.append(time.perf_counter() - t)
     bound_ms, bound_by = _bound(v * 8 + k * 8, v * k)
     # dbg_bin must read the degrees and write the groups and the int64
-    # mapping: 16 bytes per vertex
+    # mapping: 16 bytes per vertex; the rank alone reads the groups and
+    # writes the mapping: 12
     dbg_bound_ms, _ = _bound(v * 16 + k * 8, v * k)
-    hist_ops = _device_launches(lambda: hist_bin(deg_t, b_t))
-    dbg_ops = _device_launches(lambda: dbg_bin(deg_t, b_t))
+    rank_bound_ms, rank_bound_by = _bound(v * 12 + (tiles.numel() + k) * 4,
+                                          0)
+
+    def rank():
+        return stable_rank(groups, hist_t, tiles)
+
+    rank_err = float((rank() - ref_mapping).abs().max())
+    if rank_err != 0.0:
+        raise AssertionError(f"timed stable_rank differs from the plain "
+                             f"mapping by {rank_err} (must be bitwise)")
+    rank_out = dict(
+        ms=_events_ms(rank, reps), device_ms=_events_ms(rank, reps, True),
+        plain_ms=_events_ms(lambda: stable_mapping_ref(groups, k), reps),
+        library_ms=_events_ms(lambda: library_rank(groups), reps),
+        library_device_ms=_events_ms(lambda: library_rank(groups), reps,
+                                     True),
+        launches_per_call=1, max_abs_err=rank_err, bound_ms=rank_bound_ms,
+        bound_by=rank_bound_by)
     return dict(ms=_events_ms(lambda: hist_bin(deg_t, b_t), reps),
                 device_ms=_events_ms(lambda: hist_bin(deg_t, b_t), reps, True),
                 plain_ms=_events_ms(lambda: hist_bin_ref(deg_t, b_t), reps),
@@ -988,14 +1096,15 @@ def time_hist_bin(pk, reps):
                 library_device_ms=_events_ms(library, reps, True),
                 launches_per_call=per_call, max_abs_err=err,
                 bound_ms=bound_ms, bound_by=bound_by,
-                device_ops_per_call=len(hist_ops), device_ops=hist_ops,
                 dbg_bin_ms=_events_ms(lambda: dbg_bin(deg_t, b_t), reps),
                 dbg_bin_device_ms=_events_ms(lambda: dbg_bin(deg_t, b_t), reps,
                                              True),
                 dbg_bin_bound_ms=dbg_bound_ms,
-                dbg_bin_device_ops_per_call=len(dbg_ops),
-                dbg_bin_device_ops=dbg_ops,
-                host_mapping_ms=statistics.median(host) * 1e3)
+                dbg_bin_plain_ms=_events_ms(dbg_plain, reps),
+                dbg_bin_library_ms=_events_ms(dbg_library, reps),
+                dbg_bin_library_device_ms=_events_ms(dbg_library, reps, True),
+                host_mapping_ms=statistics.median(host) * 1e3,
+                stable_rank=rank_out)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1022,11 +1131,10 @@ def _bitwise(got, want, what):
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def k2_grid(device, k2_builds):
+def k2_grid(device):
     """K2 against its plain version, both entry points, float32 and
     bfloat16, at reduced and at Yi-9B widths, int32 and int64 ids,
-    contiguous and strided; the kept kernel and the bulk-copy build of the
-    same element type.  Returns (cases, max |err|)."""
+    contiguous and strided.  Returns (cases, max |err|)."""
     import torch
 
     from repro_torch.configs import get_config, reduced
@@ -1054,24 +1162,15 @@ def k2_grid(device, k2_builds):
         for dtype, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             t = table.to(dtype)
             hot, cold = t[:h], t[h:]
-            for build, lib in (("kept", None),
-                               ("bulk", k2_builds[f"bulk_{kind}"])):
-                for what, b in ids.items():
-                    label = (f"K2 ({build}) {what} T={b.shape[0]} H={h} "
-                             f"C={c} D={d} {dtype}")
-
-                    def both(b=b):
-                        return hot_gather(b, hot, cold), hot_gather(b, hot)
-
-                    split, hot_only = (
-                        both() if lib is None
-                        else _with_build(K2_MODULE, {kind: lib}, both))
-                    err = max(err, _bitwise(split,
-                                            split_gather_ref(hot, cold, b),
-                                            label + " split"),
-                              _bitwise(hot_only, hot_gather_ref(b, hot),
-                                       label + " hot-only"))
-                    cases += 2
+            for what, b in ids.items():
+                label = (f"K2 {what} T={b.shape[0]} H={h} C={c} D={d} "
+                         f"{dtype}")
+                err = max(err, _bitwise(hot_gather(b, hot, cold),
+                                        split_gather_ref(hot, cold, b),
+                                        label + " split"),
+                          _bitwise(hot_gather(b, hot), hot_gather_ref(b, hot),
+                                   label + " hot-only"))
+                cases += 2
             del t, hot, cold
         del table
     _sync()
@@ -1258,45 +1357,67 @@ def _host_us(fn, n=1000):
     return dt / n * 1e6
 
 
-def _device_launches(fn):
-    """The device activities (kernels, copies, fills) of one ``fn()``, read
-    under ``torch.profiler`` after a warm call."""
+def _device_ops(calls, tries=3):
+    """The device activities (kernels, copies, fills) of one call of each
+    function in ``calls`` (name → fn), after a warm call of each, under
+    ``torch.profiler``.  The profiler on the card's machine can drop device
+    events from a session, and its device timestamps can drift from the
+    host's.  So each call runs in its own ``record_function`` range; a
+    device event belongs to the range that holds, on the host's clock, the
+    CUDA runtime call that launched it (the two share a correlation id);
+    and the session runs again, up to ``tries`` times, until two sessions
+    agree, keeping each call's longest list."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
+    for fn in calls.values():
+        fn()
     _sync()
-    with warnings.catch_warnings():  # "Profiler clears events at the end..."
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            _sync()
-    return [e.name[:60] for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    tag = "chip_smoke:"
+    best = {name: [] for name in calls}
+    for _ in range(tries):
+        with warnings.catch_warnings():  # "Profiler clears events at..."
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for name, fn in calls.items():
+                    with record_function(tag + name):
+                        fn()
+                        _sync()
+        events = prof.events()
+        device = {e.id: e.name[:60] for e in events
+                  if e.device_type == DeviceType.CUDA}
+        ranges = [(e.time_range, e.name[len(tag):]) for e in events
+                  if e.device_type == DeviceType.CPU
+                  and e.name.startswith(tag)]
+        got = {name: [] for name in calls}
+        for e in sorted(events, key=lambda e: e.time_range.start):
+            if (e.device_type == DeviceType.CPU and e.name.startswith("cu")
+                    and e.id in device):
+                for r, name in ranges:
+                    if r.start <= e.time_range.start <= r.end:
+                        got[name].append(device[e.id])
+        stable = got == best
+        for name, ops in got.items():
+            if len(ops) > len(best[name]):
+                best[name] = ops
+        if stable:
+            break
+    return best
 
 
-def time_k2(model, served, reps, k2_builds):
+def time_k2(model, served, reps):
     """K2 at the decode call (the last step's LM_BATCH ids) and at K2_ZIPF_T
-    Zipf ids, against its plain version, ``F.embedding`` over the joined
-    table (built once, outside the timed region) and the comparison builds
-    of the tables' element type (each checked bitwise against the kept
-    kernel), each from an idle device (``ms``) and on the device alone
-    (``device_ms``); the kept kernel's device time again after the builds;
-    the host time of one call at the decode call; and the device launches
-    of one ``embed_lookup`` at a prefill step (a strided column of the
-    prompt) and at a decode step."""
+    Zipf ids, against its plain version and ``F.embedding`` over the
+    joined table (built once, outside the timed region), each from an idle
+    device (``ms``) and on the device alone (``device_ms``); and the host
+    time of one call at the decode call."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.gather_embed import hot_gather, split_gather_ref
-    from repro_torch.lm.embed import embed_lookup
 
     cfg = model.cfg
-    elem = f"-DK2_ELEM_BYTES={model.embed['hot'].element_size()}"
-    kind = {4: "f32", 2: "bf16"}[model.embed["hot"].element_size()]
-    builds = {name: lib for name, lib in k2_builds.items()
-              if elem in K2_BUILDS[name]}
     with torch.no_grad():
         hot, cold = model.embed["hot"].detach(), model.embed["cold"].detach()
         table = torch.cat([hot, cold])
@@ -1335,28 +1456,13 @@ def time_k2(model, served, reps, k2_builds):
                 library_ms=_events_ms(library, reps),
                 library_device_ms=_events_ms(library, reps, True),
                 bound_ms=bound_ms, bound_by=bound_by,
-                launches_per_call=per_call, max_abs_err=err, builds={})
-            for name, lib in builds.items():
-                _bitwise(_with_build(K2_MODULE, {kind: lib}, kernel), got,
-                         f"K2's {name} build ({label}) vs the kept kernel")
-                out[label]["builds"][name] = _with_build(
-                    K2_MODULE, {kind: lib}, lambda: dict(
-                    ms=_events_ms(kernel, reps),
-                    device_ms=_events_ms(kernel, reps, True)))
-            out[label]["kept_again_device_ms"] = _events_ms(kernel, reps,
-                                                            True)
+                launches_per_call=per_call, max_abs_err=err)
         ids = calls["decode"]
         out["decode"]["host_us"] = _host_us(lambda: hot_gather(ids, hot, cold))
         out["decode"]["library_host_us"] = _host_us(
             lambda: F.embedding(ids, table))
         del table
-        # what the serving loop passes: a prefill step's column of the
-        # prompt (a strided view) and a decode step's (B, 1) greedy pick
-        steps = {"prefill": served[:, 1:2],
-                 "decode": served[:, -1:].contiguous()}
-        launches = {k: _device_launches(lambda ids=ids: embed_lookup(
-            model.embed, ids)) for k, ids in steps.items()}
-    return out, launches
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -1377,8 +1483,8 @@ def main() -> int:
     from repro_torch.kernels import _build, load_all
     from repro_torch.kernels.edge_map import ell_tiles
     from repro_torch.kernels.edge_map.edge_map import _SOURCE as K5_SOURCE
-    from repro_torch.kernels.gather_embed.gather_embed import (
-        _SOURCE as K2_SOURCE)
+    from repro_torch.kernels.hist_bin import dbg_bin, hist_bin
+    from repro_torch.lm.embed import embed_lookup
 
     t_start = time.perf_counter()
     # 1. device
@@ -1386,19 +1492,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     card = torch.cuda.get_device_name(0)
-    log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"device: {card} ({smi}); torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
 
     # 2. build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
-        extra = pool.submit(_build.load_many, [(K5_SOURCE, NARROW_BUILDS),
-                                               (K2_SOURCE, K2_BUILDS)])
+        extra = pool.submit(_build.load_many, [(K5_SOURCE, NARROW_BUILDS)])
         load_all()
-        narrow_builds, k2_builds = extra.result()
-    log(f"build: K5, K4, K1, hist_bin and K2 libraries, K5's sum "
-        f"{' and '.join(NARROW_BUILDS)}, and K2 {', '.join(K2_BUILDS)}, "
-        f"ready in {time.perf_counter() - t0:.1f} s (every nvcc started "
-        "together)")
+        (narrow_builds,) = extra.result()
+    log(f"build: K5, K4, K1, hist_bin (with the stable rank) and K2 "
+        f"libraries and K5's sum {' and '.join(NARROW_BUILDS)}, ready in "
+        f"{time.perf_counter() - t0:.1f} s (every nvcc started together)")
 
     # 3. K5 vs plain, every static variant
     dev = torch.device("cuda")
@@ -1520,20 +1625,28 @@ def main() -> int:
         f"every lane {k1['padded_ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
         f"cuSPARSE {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
         f"(real lanes), {k1['padded_bound_ms']:.4f} ms (padded planes)")
+    sr = hb["stable_rank"]
     log(f"timed hist_bin: kernel {hb['ms']:.4f} ms (device alone "
         f"{hb['device_ms']:.4f}), plain "
         f"{hb['plain_ms']:.4f} ms, searchsorted + bincount "
-        f"{hb['library_ms']:.4f} ms, bound {hb['bound_ms']:.4f} ms; device "
-        f"DBG (dbg_bin) {hb['dbg_bin_ms']:.4f} ms (device alone "
-        f"{hb['dbg_bin_device_ms']:.4f}, bound {hb['dbg_bin_bound_ms']:.4f}) "
-        f"vs host mapping (group_reorder) {hb['host_mapping_ms']:.2f} ms "
-        f"({time.perf_counter() - t0:.1f} s)")
-    for what, names in (("hist_bin", hb["device_ops"]),
-                        ("dbg_bin", hb["dbg_bin_device_ops"])):
-        log(f"  one {what} call: {len(names)} device operation(s) {names}")
+        f"{hb['library_ms']:.4f} ms (device alone "
+        f"{hb['library_device_ms']:.4f}), bound {hb['bound_ms']:.4f} ms")
+    log(f"timed stable_rank: kernel {sr['ms']:.4f} ms (device alone "
+        f"{sr['device_ms']:.4f}), plain {sr['plain_ms']:.4f} ms, argsort + "
+        f"scatter_ {sr['library_ms']:.4f} ms (device alone "
+        f"{sr['library_device_ms']:.4f}), bound {sr['bound_ms']:.4f} ms")
+    log(f"timed device DBG (dbg_bin: hist_bin, then stable_rank): "
+        f"{hb['dbg_bin_ms']:.4f} ms (device alone "
+        f"{hb['dbg_bin_device_ms']:.4f}), plain "
+        f"{hb['dbg_bin_plain_ms']:.4f} ms, searchsorted + argsort + scatter_ "
+        f"{hb['dbg_bin_library_ms']:.4f} ms (device alone "
+        f"{hb['dbg_bin_library_device_ms']:.4f}), bound "
+        f"{hb['dbg_bin_bound_ms']:.4f} ms; host mapping (group_reorder) "
+        f"{hb['host_mapping_ms']:.2f} ms ({time.perf_counter() - t0:.1f} s)")
 
     # 9. K2 vs plain, once the graph state has left the card
     pk_err = pk["max_err"]
+    deg_t, b_t = pk["deg_t"], pk["b_t"]  # phase 12 profiles dbg_bin on them
     del pk, small_tiles, small, g, g_dbg, gw_dbg, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -1542,8 +1655,8 @@ def main() -> int:
     log("float32 matmuls: full float32 (torch.backends.cuda.matmul."
         "allow_tf32 = False)")
     t0 = time.perf_counter()
-    n9, e9 = k2_grid(dev, k2_builds)
-    log(f"K2 vs plain (the kept kernel and the bulk-copy build): {n9} cases "
+    n9, e9 = k2_grid(dev)
+    log(f"K2 vs plain: {n9} cases "
         f"bitwise equal, max |err| {e9} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1568,31 +1681,41 @@ def main() -> int:
 
     # 12. K2's times
     t0 = time.perf_counter()
-    k2, lookups = time_k2(model, served, REPS, k2_builds)
+    k2 = time_k2(model, served, REPS)
     for label, m in k2.items():
         log(f"timed K2 ({label}, T={m['t']}, D={model.cfg.d_model} float32): "
-            f"kernel {m['ms']:.4f} ms (device alone {m['device_ms']:.4f}; "
-            f"again after the builds {m['kept_again_device_ms']:.4f}), "
+            f"kernel {m['ms']:.4f} ms (device alone {m['device_ms']:.4f}), "
             f"plain {m['plain_ms']:.4f} ms, F.embedding "
             f"{m['library_ms']:.4f} ms (device alone "
             f"{m['library_device_ms']:.4f}), bound {m['bound_ms']:.5f}"
             f" ms ({m['bound_by']}; {m['distinct_rows']} distinct rows; "
             f"{m['bound_ms_t_rows']:.5f} ms if every row were read)")
-        for build, b in m["builds"].items():
-            log(f"  K2's {build} build, bitwise equal to the kept kernel: "
-                f"{b['ms']:.4f} ms (device alone {b['device_ms']:.4f})")
     m = k2["decode"]
     log(f"  host time per call at the decode call (1,000 calls, no sync): "
         f"hot_gather {m['host_us']:.2f} us, F.embedding "
         f"{m['library_host_us']:.2f} us")
-    for step, names in lookups.items():
-        log(f"  one embed_lookup at a {step} step: {len(names)} device "
-            f"launch(es) {names}")
-        if len(names) != 1:
-            raise AssertionError(f"one embed_lookup at a {step} step made "
-                                 f"{len(names)} device launches, not 1")
+    # the device operations of what the serving loop passes to embed_lookup
+    # (a prefill step's strided column of the prompt, a decode step's (B, 1)
+    # greedy pick) and of hist_bin and dbg_bin at phase 8's call: all here,
+    # after phase 11's session, as this process's profiler reads reliably
+    prefill, decode = served[:, 1:2], served[:, -1:].contiguous()
+    with torch.no_grad():
+        ops = _device_ops({
+            "prefill": lambda: embed_lookup(model.embed, prefill),
+            "decode": lambda: embed_lookup(model.embed, decode),
+            "hist_bin": lambda: hist_bin(deg_t, b_t),
+            "dbg_bin": lambda: dbg_bin(deg_t, b_t)})
+    want = {"prefill": 1, "decode": 1, "hist_bin": 1, "dbg_bin": 2}
+    for what, names in ops.items():
+        log(f"  one {what} call: {len(names)} device operation(s) {names}")
+        if len(names) != want[what]:
+            raise AssertionError(f"one {what} call made {len(names)} device "
+                                 f"operations, not {want[what]}")
+    lookups = {k: ops[k] for k in ("prefill", "decode")}
+    hb["device_ops_per_call"] = len(ops["hist_bin"])
+    hb["dbg_bin_device_ops_per_call"] = len(ops["dbg_bin"])
     log(f"K2 timings done ({time.perf_counter() - t0:.1f} s)")
-    del model
+    del model, deg_t, b_t
     gc.collect()
     torch.cuda.empty_cache()
     log(json.dumps({"lm_serve": {k: v for k, v in lm.items()
@@ -1606,6 +1729,7 @@ def main() -> int:
         "ell_spmv": dict(k1, max_abs_err=max(err1, k1["max_abs_err"],
                                              pk_err["ell_spmv"])),
         "hist_bin": hb,
+        "stable_rank": hb["stable_rank"],
         "hot_gather": dict(k2["decode"], max_abs_err=max(
             e9, lm["max_abs_err"], k2["decode"]["max_abs_err"],
             k2["zipf"]["max_abs_err"]), at_zipf_8192=k2["zipf"]),
@@ -1632,17 +1756,18 @@ def main() -> int:
         if "dbg_bin_ms" in m:  # hist_bin: its caller, the device DBG
             for key in ("device_ops_per_call", "dbg_bin_ms",
                         "dbg_bin_device_ms", "dbg_bin_bound_ms",
+                        "dbg_bin_plain_ms", "dbg_bin_library_ms",
+                        "dbg_bin_library_device_ms",
                         "dbg_bin_device_ops_per_call"):
                 entry[key] = m[key]
         if "padded_ms" in m:  # K1 without the degrees: every lane
             entry["padded_ms"] = m["padded_ms"]
             entry["padded_bound_ms"] = m["padded_bound_ms"]
         if "at_zipf_8192" in m:
-            entry["builds"] = m["builds"]
             entry["at_zipf_8192"] = {k: m["at_zipf_8192"][k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms",
                 "library_device_ms", "bound_ms", "bound_by",
-                "distinct_rows", "builds")}
+                "distinct_rows")}
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -40,13 +40,10 @@
 //    stores; an L2 evict_last / evict_first policy on hot / cold loads took
 //    nothing off and was dropped (see PERF.md).
 //
-// A comparison build, -DK2_BULK=1, copies each row with Hopper's bulk-copy
-// engine instead: one thread of a one-warp block issues cp.async.bulk
-// global -> shared on an mbarrier, then shared -> global, kStages chunks in
-// flight per block (16-byte rows and pointers only; the rest take the
-// element kernel above).  chip_smoke.py builds it beside the kept kernel
-// and times both; on the H100 it took ~12% more device time at 8,192 Zipf
-// ids, so it is not the kept kernel (see PERF.md).
+// Hopper's bulk-copy engine (cp.async.bulk through shared memory on an
+// mbarrier, one thread of a one-warp block issuing each copy) took ~12% more
+// device time than this kernel at 8,192 Zipf ids on the H100 (see PERF.md),
+// so the threads copy the rows.
 //
 // The C entries return cudaGetLastError() after the launch; the launch is on
 // the caller's stream and allocates nothing.
@@ -56,9 +53,6 @@
 
 #ifndef K2_ELEM_BYTES
 #define K2_ELEM_BYTES 4
-#endif
-#ifndef K2_BULK
-#define K2_BULK 0
 #endif
 
 namespace {
@@ -117,121 +111,6 @@ row_kernel(const IdT* __restrict__ ids, int64_t id_stride,
   }
 }
 
-#if K2_BULK
-constexpr int kChunk = 8192;  // bytes per bulk copy
-constexpr int kStages = 4;    // chunks in flight per block
-constexpr int kBulkBlocks = 132 * 6;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "K2_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra K2_WAIT;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// One warp per block; lane 0 issues every copy.  The block walks rows
-// blockIdx.x, + gridDim.x, ..., each in chunks of at most kChunk bytes;
-// chunk k of the block uses stage k % kStages.  A zero row is written by
-// the warp's plain stores.
-template <typename IdT, bool kSplit>
-__global__ void __launch_bounds__(32)
-bulk_kernel(const IdT* __restrict__ ids, int64_t id_stride,
-            const char* __restrict__ hot, int64_t h,
-            const char* __restrict__ cold, int64_t c, int64_t row_bytes,
-            char* __restrict__ out, int64_t n) {
-  __shared__ __align__(128) char buf[kStages][kChunk];
-  __shared__ __align__(8) uint64_t bars[kStages];
-  const int lane = threadIdx.x;
-  if (lane == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :: "r"(smem_addr(&bars[s])) : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  }
-  __syncwarp();
-  // The block's chunks as a stream: (row, offset) of chunk k.  Loads run
-  // kStages ahead of stores.
-  int64_t load_t = blockIdx.x, load_off = 0;      // next chunk to load
-  int64_t store_t = blockIdx.x, store_off = 0;    // next chunk to store
-  uint32_t parity = 0;  // bit s: the phase stage s waits for next
-  int64_t k_load = 0, k_store = 0;
-  auto source = [&](int64_t t) -> const char* {
-    bool is_hot;
-    const int64_t r = source_row<IdT, kSplit>(ids, id_stride, t, h, c, &is_hot);
-    return r < 0 ? nullptr : (is_hot ? hot : cold) + r * row_bytes;
-  };
-  auto issue = [&]() {
-    // lane 0 issues the load of the next chunk, if any, into its stage
-    if (load_t >= n) return;
-    const int s = static_cast<int>(k_load % kStages);
-    const int64_t left = row_bytes - load_off;
-    const uint32_t bytes = static_cast<uint32_t>(left < kChunk ? left : kChunk);
-    const char* src = source(load_t);
-    if (lane == 0 && src != nullptr) {
-      bulk_load(smem_addr(buf[s]), src + load_off, bytes, smem_addr(&bars[s]));
-    }
-    ++k_load;
-    load_off += bytes;
-    if (load_off == row_bytes) {
-      load_off = 0;
-      load_t += gridDim.x;
-    }
-  };
-  for (int i = 0; i < kStages; ++i) issue();
-  while (store_t < n) {
-    const int s = static_cast<int>(k_store % kStages);
-    const int64_t left = row_bytes - store_off;
-    const uint32_t bytes = static_cast<uint32_t>(left < kChunk ? left : kChunk);
-    const char* src = source(store_t);
-    char* dst = out + store_t * row_bytes + store_off;
-    if (src != nullptr) {
-      if (lane == 0) {
-        bar_wait(smem_addr(&bars[s]), (parity >> s) & 1u);
-        asm volatile(
-            "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-            :: "l"(dst), "r"(smem_addr(buf[s])), "r"(bytes) : "memory");
-        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-        // the stage is refilled next: its store must have read it
-        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-      }
-      parity ^= 1u << s;
-    } else {
-      for (uint32_t j = lane * 16; j < bytes; j += 32 * 16) {
-        *reinterpret_cast<uint4*>(dst + j) = uint4{};
-      }
-    }
-    __syncwarp();
-    ++k_store;
-    store_off += bytes;
-    if (store_off == row_bytes) {
-      store_off = 0;
-      store_t += gridDim.x;
-    }
-    issue();
-  }
-  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-#endif  // K2_BULK
-
 template <typename IdT, bool kSplit>
 cudaError_t launch_ids(const IdT* ids, int64_t id_stride, const void* hot,
                        int64_t h, const void* cold, int64_t c, int64_t d,
@@ -243,19 +122,10 @@ cudaError_t launch_ids(const IdT* ids, int64_t id_stride, const void* hot,
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const auto blocks = static_cast<unsigned>(n);
   if (vec) {
-#if K2_BULK
-    const unsigned bulk = n < kBulkBlocks ? static_cast<unsigned>(n)
-                                          : static_cast<unsigned>(kBulkBlocks);
-    bulk_kernel<IdT, kSplit><<<bulk, 32, 0, s>>>(
-        ids, id_stride, static_cast<const char*>(hot), h,
-        static_cast<const char*>(cold), c, row_bytes,
-        static_cast<char*>(out), n);
-#else
     row_kernel<uint4, IdT, kSplit><<<blocks, kThreads, 0, s>>>(
         ids, id_stride, static_cast<const uint4*>(hot), h,
         static_cast<const uint4*>(cold), c, static_cast<int>(row_bytes / 16),
         static_cast<uint4*>(out));
-#endif
   } else {
     row_kernel<Elem, IdT, kSplit><<<blocks, kThreads, 0, s>>>(
         ids, id_stride, static_cast<const Elem*>(hot), h,

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card (marked ``cuda``; skips without a card):
 K5 (narrow classes, and rows wider than 1,024 lanes by block and split
 across blocks), K4 (narrow tables, and hub rows split across blocks), K1
-(every lane, and only the real ones), hist_bin and K2 (the kept kernel and
-the bulk-copy build) against their plain versions, the apps on
+(every lane, and only the real ones), hist_bin and the stable rank
+(``dbg_bin``) and K2 against their plain versions, the apps on
 ``ell`` and ``packed`` against ``flat``, the LM's greedy decode on the card
 against the CPU, and the wrappers raising rather than falling back.
 
@@ -307,25 +307,137 @@ def test_ell_spmv_with_degrees_matches_every_lane_and_plain(cuda):
 
 
 def test_hist_bin_and_dbg_bin_match_plain_and_host(cuda):
+    """hist_bin bitwise against its plain version over DBG bounds, bounds
+    that end above 0, unsorted bounds, K = 1 and K = 32, at V of 1, a tile
+    and a tile +- 1 and 100,003; ``dbg_bin`` against the host mapping at
+    each V.  One hist_bin launch per hist_bin call and per dbg_bin call."""
     from repro_torch.core.reorder import dbg_spec, group_reorder
-    from repro_torch.kernels.hist_bin import dbg_bin, hist_bin, hist_bin_ref
+    from repro_torch.kernels.hist_bin import (TILE, dbg_bin, hist_bin,
+                                              hist_bin_ref)
 
     rng = np.random.default_rng(3)
-    deg = rng.integers(0, 3000, 100_003).astype(np.int32)
-    spec = dbg_spec(float(deg.mean()))
-    d = torch.from_numpy(deg).to(cuda)
-    before = hist_bin.launches
-    for bounds in (spec.boundaries, (900, 300, 40, 7), (5, 50, 0, 500),
-                   tuple(range(31 * 90, -1, -90))):
-        b = torch.tensor(bounds, dtype=torch.int32, device=cuda)
-        for got, want in zip(hist_bin(d, b), hist_bin_ref(d, b)):
-            assert torch.equal(got, want)
-    mapping, _, _ = dbg_bin(d, torch.tensor(spec.boundaries, dtype=torch.int32,
-                                            device=cuda))
-    np.testing.assert_array_equal(mapping.cpu().numpy(),
-                                  group_reorder(deg, spec).mapping)
+    full = rng.integers(0, 3000, 100_003).astype(np.int32)
+    before, calls = hist_bin.launches, 0
+    for v in (100_003, 1, TILE - 1, TILE, TILE + 1):
+        deg = full[:v]
+        spec = dbg_spec(max(1.0, float(deg.mean())))
+        d = torch.from_numpy(deg).to(cuda)
+        for bounds in (spec.boundaries, (900, 300, 40, 7), (5, 50, 0, 500),
+                       (int(np.median(deg)),), tuple(range(31 * 90, -1, -90))):
+            b = torch.tensor(bounds, dtype=torch.int32, device=cuda)
+            for got, want in zip(hist_bin(d, b), hist_bin_ref(d, b)):
+                assert torch.equal(got, want), (v, bounds)
+        mapping, _, _ = dbg_bin(d, torch.tensor(spec.boundaries,
+                                                dtype=torch.int32, device=cuda))
+        np.testing.assert_array_equal(mapping.cpu().numpy(),
+                                      group_reorder(deg, spec).mapping)
+        calls += 6
     torch.cuda.synchronize()
-    assert hist_bin.launches == before + 5
+    assert hist_bin.launches == before + calls
+
+
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_dbg_bin_matches_plain_path_bitwise(cuda, k):
+    """``dbg_bin`` on the card (hist_bin, then the rank kernel: two
+    launches, no one-hot) against the plain path (``hist_bin_ref``, then
+    ``stable_mapping_ref``), bitwise, and ``stable_mapping_from_groups``
+    on the plain groups; V of 0, 1, a tile +- 1, several tiles with a
+    ragged end; every vertex in the first group and in the last; an
+    unaligned degree vector (the kernels' scalar path)."""
+    from repro_torch.kernels.hist_bin import (TILE, dbg_bin, hist_bin,
+                                              hist_bin_ref, stable_mapping_ref,
+                                              stable_mapping_from_groups,
+                                              stable_rank)
+
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    deg = torch.randint(0, 5000, (5 * TILE + 7,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    bounds = torch.sort(torch.randint(1, 4000, (k,), generator=gen,
+                                      device=cuda, dtype=torch.int32),
+                        descending=True).values
+    bounds[-1] = 0
+    cases = [deg[:n] for n in (0, 1, TILE - 1, TILE + 1, 5 * TILE + 7)]
+    cases += [deg + 4000, torch.zeros_like(deg), deg[1:]]  # first, last, off 16 B
+    for d in cases:
+        n0, r0 = hist_bin.launches, stable_rank.launches
+        mapping, groups, hist = dbg_bin(d, bounds)
+        assert (hist_bin.launches - n0, stable_rank.launches - r0) == (1, 1)
+        ref_groups, ref_hist = hist_bin_ref(d, bounds)
+        ref_mapping = stable_mapping_ref(ref_groups, k)
+        assert mapping.dtype == torch.int64
+        assert torch.equal(groups, ref_groups), d.shape[0]
+        assert torch.equal(hist, ref_hist), d.shape[0]
+        assert torch.equal(mapping, ref_mapping), d.shape[0]
+        assert torch.equal(stable_mapping_from_groups(ref_groups, k),
+                           ref_mapping), d.shape[0]
+        assert torch.equal(stable_mapping_from_groups(ref_groups[1:], k),
+                           stable_mapping_ref(ref_groups[1:], k))
+    torch.cuda.synchronize()
+
+
+def test_hist_bin_is_one_device_operation(cuda):
+    """The kernel writes its own histogram: no fill ahead of it.  dbg_bin
+    is two kernels.  Device events are read through the CUDA runtime calls
+    of the session that launched them (they share a correlation id): the
+    profiler can drop a session's device events, so it runs up to three
+    times and the longest list stands."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.hist_bin import dbg_bin, hist_bin
+
+    d = torch.randint(0, 3000, (100_003,), device=cuda, dtype=torch.int32)
+    b = torch.tensor([900, 300, 40, 7, 0], dtype=torch.int32, device=cuda)
+
+    def ops(fn):
+        fn()
+        torch.cuda.synchronize()
+        best = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = prof.events()
+            device = {e.id: e.name for e in events
+                      if e.device_type == DeviceType.CUDA}
+            got = [device[e.id] for e in events
+                   if e.device_type == DeviceType.CPU
+                   and e.name.startswith("cu") and e.id in device]
+            best = max(best, got, key=len)
+        return best
+
+    hist_ops, dbg_ops = ops(lambda: hist_bin(d, b)), ops(lambda: dbg_bin(d, b))
+    assert len(hist_ops) == 1 and "bin_kernel" in hist_ops[0], hist_ops
+    assert len(dbg_ops) == 2, dbg_ops
+    assert "bin_kernel" in dbg_ops[0] and "rank_kernel" in dbg_ops[1], dbg_ops
+
+
+def test_stable_rank_raises_instead_of_falling_back(cuda):
+    from repro_torch.kernels.hist_bin import (bin_tiles, group_tiles,
+                                              stable_mapping_from_groups,
+                                              stable_rank)
+
+    g = torch.zeros(16, dtype=torch.int32, device=cuda)
+    _, hist, tiles = bin_tiles(g, torch.tensor([1, 0], dtype=torch.int32,
+                                               device=cuda))
+    strided = torch.zeros(32, dtype=torch.int32, device=cuda)[::2]
+    before = stable_rank.launches
+    with pytest.raises(TypeError, match="int32"):
+        stable_mapping_from_groups(g.long(), 2)
+    with pytest.raises(TypeError, match="contiguous int32"):
+        stable_rank(g.long(), hist, tiles)
+    with pytest.raises(TypeError, match="contiguous int32"):
+        stable_rank(strided, hist, tiles)
+    with pytest.raises(TypeError, match="contiguous int32"):
+        group_tiles(strided, 2)
+    with pytest.raises(TypeError, match="int32"):
+        stable_rank(g, hist.long(), tiles)
+    with pytest.raises(ValueError, match="is on cpu"):
+        stable_rank(g, hist, tiles.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        stable_rank(g, hist, tiles.repeat(2, 1))
+    assert stable_rank.launches == before
 
 
 def test_packed_path_matches_flat_on_the_card(cuda):
@@ -424,57 +536,37 @@ def test_hot_gather_matches_plain_version(cuda, dtype, h, c, d, t):
                        torch.zeros((t, d), dtype=dt, device=cuda))
 
 
-def _k2_bulk_libraries():
-    """K2 built with Hopper's bulk-copy engine, as ``chip_smoke.py``'s
-    comparison build: element type → library."""
-    from repro_torch.kernels._build import load_libraries
-    from repro_torch.kernels.gather_embed.gather_embed import _SOURCE
-
-    return load_libraries(_SOURCE, {
-        "f32": ["-DK2_ELEM_BYTES=4", "-DK2_BULK=1"],
-        "bf16": ["-DK2_ELEM_BYTES=2", "-DK2_BULK=1"]})
-
-
-@pytest.mark.parametrize("build", ["kept", "bulk"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_hot_gather_builds_match_plain_version(cuda, build, dtype):
-    """The kept kernel and the bulk-copy build, bitwise on both entry
-    points: rows of 16 KiB, of three bulk chunks, of a multiple of 16 bytes
-    in float32 only, and of 3 elements; T = 0, 1, 4 and 8,192; int32 and
-    int64 ids, contiguous and strided, past the table and below 0."""
-    import repro_torch.kernels.gather_embed.gather_embed as ge
+def test_hot_gather_builds_match_plain_version(cuda, dtype):
+    """K2 bitwise on both entry points: rows of 16 KiB, of 24,000 bytes, of
+    a multiple of 16 bytes in float32 only, and of 3 elements; T = 0, 1, 4
+    and 8,192; int32 and int64 ids, contiguous and strided, past the table
+    and below 0."""
     from repro_torch.kernels.gather_embed import (hot_gather, hot_gather_ref,
                                                   split_gather_ref)
 
     dt = getattr(torch, dtype)
-    kind = "f32" if dtype == "float32" else "bf16"
-    kept = dict(ge.load_kernels())
-    if build == "bulk":
-        ge._bind({kind: _k2_bulk_libraries()[kind]})
     gen = torch.Generator(device=cuda).manual_seed(11)
-    before, launches = ge.hot_gather.launches, 0
-    try:
-        for h, c, d in ((64, 192, 4096), (16, 48, 6000), (16, 48, 100),
-                        (8, 24, 3)):
-            full = torch.randn((h + c, d), generator=gen, device=cuda).to(dt)
-            hot, cold = full[:h], full[h:]
-            for t in (0, 1, 4, 8192):
-                ids = torch.randint(-3, h + c + 9, (t,), generator=gen,
-                                    device=cuda, dtype=torch.int32)
-                pair = torch.stack([ids, ids.flip(0)], dim=1)
-                cases = {"int32": ids, "int64": ids.long(),
-                         "strided": pair[:, 1], "int64_strided": pair.long()[:, 0]}
-                for what, b in cases.items():
-                    label = f"{build} {dtype} D={d} T={t} {what}"
-                    assert torch.equal(hot_gather(b, hot, cold),
-                                       split_gather_ref(hot, cold, b)), label
-                    assert torch.equal(hot_gather(b, hot),
-                                       hot_gather_ref(b, hot)), label
-                    launches += 2
-        torch.cuda.synchronize()
-    finally:
-        ge._KERNELS.update(kept)
-    assert ge.hot_gather.launches - before == launches
+    before, launches = hot_gather.launches, 0
+    for h, c, d in ((64, 192, 4096), (16, 48, 6000), (16, 48, 100),
+                    (8, 24, 3)):
+        full = torch.randn((h + c, d), generator=gen, device=cuda).to(dt)
+        hot, cold = full[:h], full[h:]
+        for t in (0, 1, 4, 8192):
+            ids = torch.randint(-3, h + c + 9, (t,), generator=gen,
+                                device=cuda, dtype=torch.int32)
+            pair = torch.stack([ids, ids.flip(0)], dim=1)
+            cases = {"int32": ids, "int64": ids.long(),
+                     "strided": pair[:, 1], "int64_strided": pair.long()[:, 0]}
+            for what, b in cases.items():
+                label = f"{dtype} D={d} T={t} {what}"
+                assert torch.equal(hot_gather(b, hot, cold),
+                                   split_gather_ref(hot, cold, b)), label
+                assert torch.equal(hot_gather(b, hot),
+                                   hot_gather_ref(b, hot)), label
+                launches += 2
+    torch.cuda.synchronize()
+    assert hot_gather.launches - before == launches
 
 
 def test_hot_gather_raises_instead_of_falling_back(cuda):

@@ -1,12 +1,18 @@
-"""DBG binning (hist_bin) and ``dbg_bin`` against ``repro``'s.
+"""DBG binning (hist_bin), the stable rank and ``dbg_bin`` against ``repro``'s.
 
-The port's plain version — what ``hist_bin`` runs for CPU tensors — is held
-to the TPU kernel ``hist_bin_pallas`` in interpret mode, bitwise, also with
-bounds that do not end in 0 (a vertex no bound admits lands in group 0, the
-argmax of an all-false mask).  ``dbg_bin``'s mapping, groups and histogram
-equal the reference's, and its mapping equals the port's host
-``group_reorder`` (Listing 1 end to end).
+The port's plain versions — what ``hist_bin``, ``stable_mapping_from_groups``
+and ``dbg_bin`` run for CPU tensors — are held to the TPU kernel
+``hist_bin_pallas`` in interpret mode and to the reference's XLA stable
+mapping, bitwise, also with bounds that do not end in 0 (a vertex no bound
+admits lands in group 0, the argmax of an all-false mask), with empty
+groups and at V around the CUDA kernels' tile.  ``dbg_bin``'s mapping,
+groups and histogram equal the reference's, and its mapping equals the
+port's host ``group_reorder`` (Listing 1 end to end).  The CUDA kernels
+themselves run only on the card (``tests/test_torch_cuda.py``).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,9 +22,12 @@ torch = pytest.importorskip("torch")
 from repro.kernels.hist_bin import ops as ref_ops  # noqa: E402
 from repro.kernels.hist_bin.hist_bin import hist_bin_pallas  # noqa: E402
 from repro_torch.core.reorder import dbg_spec, group_reorder  # noqa: E402
-from repro_torch.kernels.hist_bin import (MAX_BINS, assign_bins_ref,  # noqa: E402
-                                          dbg_bin, hist_bin, histogram_ref,
-                                          stable_mapping_from_groups)
+from repro_torch.kernels.hist_bin import (MAX_BINS, TILE,  # noqa: E402
+                                          assign_bins_ref, bin_tiles,
+                                          dbg_bin, group_tiles, hist_bin,
+                                          histogram_ref, stable_mapping_ref,
+                                          stable_mapping_from_groups,
+                                          stable_rank)
 
 BOUNDS = {
     "dbg": None,  # dbg_spec over the degrees' mean
@@ -54,7 +63,7 @@ def test_plain_matches_pallas(v, tile, max_deg, bounds):
     assert int(got_h.sum()) == v
 
 
-@pytest.mark.parametrize("v", [1000, 4096, 20_000])
+@pytest.mark.parametrize("v", [1000, 4096, 20_000, 1, TILE - 1, TILE + 1])
 @pytest.mark.parametrize("max_deg", [5, 1000])
 def test_dbg_bin_matches_reference_and_host_mapping(v, max_deg):
     rng = np.random.default_rng(v + max_deg)
@@ -103,3 +112,66 @@ def test_hist_bin_wrapper_checks():
         hist_bin(deg.to("meta"), torch.zeros(2, dtype=torch.int32,
                                              device="meta"))
     assert hist_bin.launches == before
+
+
+@pytest.mark.parametrize("v", [0, 1, TILE - 1, TILE + 1])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_plain_stable_mapping_matches_reference(k, v):
+    """``stable_mapping_ref`` (the plain version the CPU path and the card's
+    checks use) against ``repro``'s XLA stable mapping, with every other
+    group left empty: the groups in order, each in vertex order."""
+    rng = np.random.default_rng(17 * k + v)
+    used = np.arange(0, k, 2)  # odd groups stay empty
+    groups = rng.choice(used, v).astype(np.int32)
+    want = np.asarray(ref_ops.stable_mapping_from_groups(jnp.asarray(groups), k))
+    got = stable_mapping_ref(torch.from_numpy(groups), k)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(want, got.numpy())
+    np.testing.assert_array_equal(
+        stable_mapping_from_groups(torch.from_numpy(groups), k).numpy(),
+        got.numpy())
+    order = np.argsort(groups, kind="stable")
+    assert (got.numpy()[order] == np.arange(v)).all()
+
+
+def test_stable_mapping_wrapper_checks_and_cpu_path_launches_nothing():
+    groups = torch.zeros(8, dtype=torch.int32)
+    before = (hist_bin.launches, stable_rank.launches)
+    with pytest.raises(TypeError, match="int32"):
+        stable_mapping_from_groups(groups.long(), 4)
+    with pytest.raises(ValueError, match="1 <= K"):
+        stable_mapping_from_groups(groups, MAX_BINS + 1)
+    with pytest.raises(ValueError, match="1 <= K"):
+        stable_mapping_from_groups(groups, 0)
+    with pytest.raises(ValueError, match=r"\(V,\)"):
+        stable_mapping_from_groups(groups.reshape(2, 4), 4)
+    assert stable_mapping_from_groups(groups, 4).tolist() == list(range(8))
+    mapping, g, hist = dbg_bin(torch.zeros(0, dtype=torch.int32),
+                               torch.tensor([5, 2, 0], dtype=torch.int32))
+    assert mapping.shape == g.shape == (0,) and hist.tolist() == [0, 0, 0]
+    assert (hist_bin.launches, stable_rank.launches) == before
+
+
+def test_kernel_entry_points_take_only_cuda_tensors():
+    """The card-only wrappers raise on a CPU tensor: no plain fallback."""
+    deg = torch.zeros(8, dtype=torch.int32)
+    bounds = torch.tensor([1, 0], dtype=torch.int32)
+    before = (hist_bin.launches, stable_rank.launches)
+    for call in (lambda: bin_tiles(deg, bounds), lambda: group_tiles(deg, 2),
+                 lambda: stable_rank(deg, torch.zeros(2, dtype=torch.int32),
+                                     torch.zeros((1, 2), dtype=torch.int32))):
+        with pytest.raises(ValueError, match="runs on cuda"):
+            call()
+    assert (hist_bin.launches, stable_rank.launches) == before
+
+
+def test_tile_matches_the_cuda_source():
+    """The wrapper sizes the kernels' scratch with ``TILE``; the library
+    checks it against ``hist_bin_tile()`` when it binds, and the source
+    must agree before that."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+           "kernels" / "hist_bin" / "csrc" / "hist_bin.cu").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    per = int(re.search(r"kPerThread = (\d+);", src).group(1))
+    assert "kTile = kThreads * kPerThread;" in src
+    assert threads * per == TILE
