@@ -11,8 +11,8 @@ Phases (any failure raises, and the script exits non-zero):
   1. device: the card's name and power limit from ``nvidia-smi``;
   2. build: compile (or load) the libraries of all five TPU kernels' ports
      — K5, K4, K1, hist_bin (with the stable-rank kernel in its source) and
-     K2 — and the two ``NARROW_BUILDS`` of K5's sum, with every ``nvcc``
-     started together;
+     K2 — the two ``NARROW_BUILDS`` of K5's sum and hist_bin's
+     ``HIST_BIN_BUILDS``, with every ``nvcc`` started together;
   3. K5 vs its plain version on the card, over every static variant, on all
      rows of every tile class of the ``kr`` registry graph at ``small`` scale
      (uint16 ids) and of the main-path graph (int32 ids), a class wider
@@ -59,7 +59,9 @@ Phases (any failure raises, and the script exits non-zero):
      launches (2 for a split table, else 1); the whole ``dbg_bin`` both
      ways beside its bound, its plain path and a library path
      (``searchsorted``, a stable ``argsort`` inverted with ``scatter_``),
-     and its launches (one of each kernel);
+     and its launches (one of each kernel); hist_bin also as its two-op
+     comparison build (``HIST_BIN_BUILDS``: a memset, then atomics), checked
+     bitwise;
   9. (the graph state freed) K2 vs its plain version on the card, bitwise:
      ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
      widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
@@ -90,8 +92,9 @@ device and ``device_ms`` on the device alone, its library call's
 version ``max_abs_err``, the TPU kernel it replaces ``replaces``, its
 launches on each path ``launches_by_path``; K1's ``ms`` and ``bound_ms`` are
 its degree walk's, ``padded_ms`` and ``padded_bound_ms`` its every-lane
-path's; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG, and
-``device_ops_per_call`` counts its device operations; ``stable_rank``
+path's; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG,
+``device_ops_per_call`` counts its device operations, and ``two_ops_ms`` and
+``two_ops_device_ms`` time its two-op comparison build; ``stable_rank``
 replaces no TPU kernel, and its ``replaces`` names the reference's XLA
 stable mapping) and, as its last line,
 ``{"ok": true, "device": {...}}``.
@@ -116,6 +119,9 @@ SLEEP_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of a device-only time
 # K5's sum built with the narrow kernel's batch threshold forced (phase 5)
 NARROW_BUILDS = {"batched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=0"],
                  "unbatched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=32"]}
+# hist_bin with its histogram from a memset and K atomics per block, not
+# the last block's fold (phase 8)
+HIST_BIN_BUILDS = {"two_ops": ["-DHIST_BIN_TWO_OPS=1"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
@@ -997,9 +1003,10 @@ def time_ell_spmv(pk, reps):
                            for gr in groups])
 
 
-def time_hist_bin(pk, reps):
+def time_hist_bin(pk, reps, builds):
     """hist_bin at ``dbg_bin``'s call (the main-path graph's out-degrees),
-    ``torch.searchsorted`` + ``torch.bincount`` as its yardstick; the whole
+    ``torch.searchsorted`` + ``torch.bincount`` as its yardstick, and its
+    two-op comparison build (``builds["two_ops"]``); the whole
     device DBG (``dbg_bin``: hist_bin, then the rank kernel) beside its
     plain path, a library path (``searchsorted``, a stable ``argsort``
     inverted with ``scatter_``) and the host mapping; the rank kernel
@@ -1060,7 +1067,7 @@ def time_hist_bin(pk, reps):
         if not torch.equal(got, ref_mapping):
             raise AssertionError(f"timed {name} differs from the plain "
                                  "mapping (must be bitwise)")
-    _, hist_t, tiles = bin_tiles(deg_t, b_t, offsets=True)
+    _, hist_t, tiles = bin_tiles(deg_t, b_t)
     host = []
     for _ in range(3):
         t = time.perf_counter()
@@ -1077,17 +1084,30 @@ def time_hist_bin(pk, reps):
     def rank():
         return stable_rank(groups, hist_t, tiles)
 
+    r0 = stable_rank.launches
     rank_err = float((rank() - ref_mapping).abs().max())
+    rank_per_call = stable_rank.launches - r0
     if rank_err != 0.0:
         raise AssertionError(f"timed stable_rank differs from the plain "
                              f"mapping by {rank_err} (must be bitwise)")
+    def two_ops():  # the histogram from a memset and atomics
+        got = hist_bin(deg_t, b_t)
+        if not (torch.equal(got[0], groups) and torch.equal(got[1], hist)):
+            raise AssertionError("hist_bin's two-op build differs from the "
+                                 "kept kernel (must be bitwise)")
+        return (_events_ms(lambda: hist_bin(deg_t, b_t), reps),
+                _events_ms(lambda: hist_bin(deg_t, b_t), reps, True))
+
+    two_ms, two_device_ms = _with_build(
+        "hist_bin.hist_bin", {"all": builds["two_ops"]}, two_ops)
     rank_out = dict(
         ms=_events_ms(rank, reps), device_ms=_events_ms(rank, reps, True),
         plain_ms=_events_ms(lambda: stable_mapping_ref(groups, k), reps),
         library_ms=_events_ms(lambda: library_rank(groups), reps),
         library_device_ms=_events_ms(lambda: library_rank(groups), reps,
                                      True),
-        launches_per_call=1, max_abs_err=rank_err, bound_ms=rank_bound_ms,
+        launches_per_call=rank_per_call, max_abs_err=rank_err,
+        bound_ms=rank_bound_ms,
         bound_by=rank_bound_by)
     return dict(ms=_events_ms(lambda: hist_bin(deg_t, b_t), reps),
                 device_ms=_events_ms(lambda: hist_bin(deg_t, b_t), reps, True),
@@ -1096,6 +1116,7 @@ def time_hist_bin(pk, reps):
                 library_device_ms=_events_ms(library, reps, True),
                 launches_per_call=per_call, max_abs_err=err,
                 bound_ms=bound_ms, bound_by=bound_by,
+                two_ops_ms=two_ms, two_ops_device_ms=two_device_ms,
                 dbg_bin_ms=_events_ms(lambda: dbg_bin(deg_t, b_t), reps),
                 dbg_bin_device_ms=_events_ms(lambda: dbg_bin(deg_t, b_t), reps,
                                              True),
@@ -1484,6 +1505,8 @@ def main() -> int:
     from repro_torch.kernels.edge_map import ell_tiles
     from repro_torch.kernels.edge_map.edge_map import _SOURCE as K5_SOURCE
     from repro_torch.kernels.hist_bin import dbg_bin, hist_bin
+    from repro_torch.kernels.hist_bin.hist_bin import (
+        _SOURCE as HIST_BIN_SOURCE)
     from repro_torch.lm.embed import embed_lookup
 
     t_start = time.perf_counter()
@@ -1498,11 +1521,14 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
-        extra = pool.submit(_build.load_many, [(K5_SOURCE, NARROW_BUILDS)])
+        extra = pool.submit(_build.load_many,
+                            [(K5_SOURCE, NARROW_BUILDS),
+                             (HIST_BIN_SOURCE, HIST_BIN_BUILDS)])
         load_all()
-        (narrow_builds,) = extra.result()
+        narrow_builds, hist_builds = extra.result()
     log(f"build: K5, K4, K1, hist_bin (with the stable rank) and K2 "
-        f"libraries and K5's sum {' and '.join(NARROW_BUILDS)}, ready in "
+        f"libraries, K5's sum {' and '.join(NARROW_BUILDS)} and hist_bin "
+        f"{' and '.join(HIST_BIN_BUILDS)}, ready in "
         f"{time.perf_counter() - t0:.1f} s (every nvcc started together)")
 
     # 3. K5 vs plain, every static variant
@@ -1600,7 +1626,7 @@ def main() -> int:
     # 8. their times
     t0 = time.perf_counter()
     k4, k1, hb = (time_hot_spmv(pk, REPS), time_ell_spmv(pk, REPS),
-                  time_hist_bin(pk, REPS))
+                  time_hist_bin(pk, REPS, hist_builds))
     for c in k4["per_table"]:
         split = ("" if c["segments"] is None
                  else f", split into {c['segments']} pieces")
@@ -1630,7 +1656,10 @@ def main() -> int:
         f"{hb['device_ms']:.4f}), plain "
         f"{hb['plain_ms']:.4f} ms, searchsorted + bincount "
         f"{hb['library_ms']:.4f} ms (device alone "
-        f"{hb['library_device_ms']:.4f}), bound {hb['bound_ms']:.4f} ms")
+        f"{hb['library_device_ms']:.4f}), bound {hb['bound_ms']:.4f} ms; "
+        f"two-op build (memset + atomics, bitwise equal) "
+        f"{hb['two_ops_ms']:.4f} ms (device alone "
+        f"{hb['two_ops_device_ms']:.4f})")
     log(f"timed stable_rank: kernel {sr['ms']:.4f} ms (device alone "
         f"{sr['device_ms']:.4f}), plain {sr['plain_ms']:.4f} ms, argsort + "
         f"scatter_ {sr['library_ms']:.4f} ms (device alone "
@@ -1754,7 +1783,8 @@ def main() -> int:
             "library_device_ms": m["library_device_ms"],
         }
         if "dbg_bin_ms" in m:  # hist_bin: its caller, the device DBG
-            for key in ("device_ops_per_call", "dbg_bin_ms",
+            for key in ("device_ops_per_call", "two_ops_ms",
+                        "two_ops_device_ms", "dbg_bin_ms",
                         "dbg_bin_device_ms", "dbg_bin_bound_ms",
                         "dbg_bin_plain_ms", "dbg_bin_library_ms",
                         "dbg_bin_library_device_ms",

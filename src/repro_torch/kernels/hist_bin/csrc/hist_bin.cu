@@ -11,13 +11,12 @@
 //               (the TPU kernel's argmax over the >= mask)
 //   hist[k]   = the number of vertices in group k
 //
-// with 1 <= K <= 32 bounds in any order.  On request it also writes
+// with 1 <= K <= 32 bounds in any order.  It also writes
 //
 //   tiles[t][k] = the number of group-k vertices in the tiles before t
 //
 // (tiles is (T, kp), kp = K rounded up to a power of two; columns past K
-// hold 0).
-// A second instance
+// hold 0).  A second instance
 // (kFromDegrees = false) takes the groups as given and writes only hist and
 // tiles: the first pass of a stable mapping from groups alone.
 //
@@ -52,15 +51,18 @@
 //    one bin, where the old kernel's shared atomics serialized);
 //  * a block's counts are summed per warp (`__reduce_add_sync`) and then
 //    over the warps in order into tiles[t][k]; the last block to finish,
-//    by an integer ticket, folds the tiles in tile order into hist and, on
-//    request, the exclusive prefix of every group over the tiles.  So the
-//    kernel writes its own histogram: no memset, one device operation.  The
-//    ticket is a counter per device that the last block resets.  The fold
+//    by an integer ticket, folds the tiles in tile order into hist and the
+//    exclusive prefix of every group over the tiles.  So the kernel writes
+//    its own histogram: no memset, one device operation.  The ticket is a
+//    counter the wrapper keeps per stream; the last block resets it.  The fold
 //    reads the (T, kp) counts coalesced, 4,096 per round trip to L2 (all of
 //    them at 2^21 vertices and K = 8), and scans them with shuffles; only
 //    the counts wait on the fence before the ticket, the groups are stored
 //    after it.  This combine across the grid (ticket, fence, fold) is what
-//    the kernel spends beyond a plain load, bin, count and store;
+//    the kernel spends beyond a plain load, bin, count and store.  Built
+//    with -DHIST_BIN_TWO_OPS=1 (a comparison build of the hist_bin entry
+//    alone) the histogram instead comes from a memset and K atomics per
+//    block, and the tiles are not written;
 //  * rank_kernel stages the tile's groups through shared memory (coalesced
 //    in, 16 consecutive vertices per thread out), counts per thread as
 //    above, takes each group's exclusive scan over the threads (warp
@@ -87,6 +89,12 @@ constexpr int kQuads = kPerThread / 4;        // int4 accesses per thread
 constexpr int kMaxBins = 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+#ifndef HIST_BIN_TWO_OPS
+#define HIST_BIN_TWO_OPS 0
+#endif
+// the comparison build: a memset, then K atomics per block into hist
+constexpr bool kTwoOps = HIST_BIN_TWO_OPS != 0;
+
 __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -109,13 +117,13 @@ constexpr int kFoldRows = 16;  // rows of kThreads counts per fold round
 // The last block's fold.  tiles is (num_tiles, kp) int32, read as rows of
 // kThreads counts: count f = r * kThreads + tid is group tid % kp of tile
 // f / kp, so thread tid always meets group tid % kp, and the tiles run in
-// the order (row, warp, lane / kp).  hist[k] = the sum of group k's counts;
-// with `offsets`, each count becomes its group's count in the tiles before
-// its own.  A round loads kFoldRows rows at once (coalesced: one round trip
+// the order (row, warp, lane / kp).  hist[k] = the sum of group k's counts,
+// and each count becomes its group's count in the tiles before its own.  A
+// round loads kFoldRows rows at once (coalesced: one round trip
 // to L2), scans each within the warp (shuffles by multiples of kp) and
 // over the warps (shared memory), and carries the totals on.
 __device__ void fold_tiles(int32_t* __restrict__ tiles, int num_tiles, int k,
-                           int kp, int32_t* __restrict__ hist, bool offsets,
+                           int kp, int32_t* __restrict__ hist,
                            int32_t* scratch) {  // kMaxBins * kThreads ints
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = tid % kp;
@@ -149,7 +157,7 @@ __device__ void fold_tiles(int32_t* __restrict__ tiles, int num_tiles, int k,
         if (w < warp) before += s;
         carry += s;
       }
-      if (offsets && i * kThreads < left) {
+      if (i * kThreads < left) {
         tiles[r0 * kThreads + tid + i * kThreads] = before;
       }
     }
@@ -168,7 +176,7 @@ __global__ void __launch_bounds__(kThreads, 4)
 bin_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bounds,
            int k, int32_t* __restrict__ groups, int32_t* __restrict__ hist,
            int32_t* __restrict__ tiles, unsigned* __restrict__ ticket,
-           int64_t n, bool vec, bool offsets) {
+           int64_t n, bool vec) {
   __shared__ int32_t sb[kMaxBins];
   __shared__ int32_t cnt[kMaxBins * kThreads];  // [group][thread]
   __shared__ int32_t wsum[kMaxBins][kWarps];
@@ -235,22 +243,31 @@ bin_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bounds,
   // block's counts, as a grid-wide barrier does it) before its ticket, and
   // the last block fences after it (an acquire of every block's counts).
   // Only the counts wait on the fence: the groups are stored after it, and
-  // the kernel's end orders them.
+  // the kernel's end orders them.  (The comparison build adds the block's
+  // counts to hist instead.)
   const int kp = padded_bins(k);
-  if (tid < kp) {
-    int s = 0;
+  if (kTwoOps) {
     if (tid < k) {
+      int s = 0;
       for (int w = 0; w < kWarps; ++w) s += wsum[tid][w];
+      atomicAdd(hist + tid, s);
     }
-    tiles[static_cast<int64_t>(blockIdx.x) * kp + tid] = s;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    if (last) {
-      *ticket = 0;  // every other block has taken its ticket
+  } else {
+    if (tid < kp) {
+      int s = 0;
+      if (tid < k) {
+        for (int w = 0; w < kWarps; ++w) s += wsum[tid][w];
+      }
+      tiles[static_cast<int64_t>(blockIdx.x) * kp + tid] = s;
+    }
+    __syncthreads();
+    if (tid == 0) {
       __threadfence();
+      last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+      if (last) {
+        *ticket = 0;  // every other block has taken its ticket
+        __threadfence();
+      }
     }
   }
   if (kFromDegrees) {
@@ -268,9 +285,10 @@ bin_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bounds,
       }
     }
   }
+  if (kTwoOps) return;
   __syncthreads();
   if (!last) return;
-  fold_tiles(tiles, gridDim.x, k, kp, hist, offsets, cnt);
+  fold_tiles(tiles, gridDim.x, k, kp, hist, cnt);
 }
 
 // Dynamic shared memory of rank_kernel: the staging area (the tile's
@@ -394,24 +412,29 @@ bool bad_args(int k, int64_t n, int64_t tiles_len) {
 
 // deg, groups: (n,) int32; bounds: (k,) int32, 1 <= k <= 32; hist: (k,)
 // int32; tiles: int32 scratch of at least ceil(n / 4096) * kp entries,
-// which holds each tile's offsets on return when `offsets` is nonzero;
-// ticket: one uint32, zero between calls (the kernel leaves it so).  n of
-// 0 still launches one empty tile, which writes the zero histogram.
+// which holds each tile's offsets on return; ticket: one uint32, zero
+// between calls (the kernel leaves it so), which no call on another stream
+// shares.  n of 0 still launches one empty tile, which writes the zero
+// histogram.
 extern "C" int hist_bin(const void* deg, const void* bounds, int k,
                         void* groups, void* hist, void* tiles,
                         int64_t tiles_len, void* ticket, int64_t n,
-                        int offsets, void* stream) {
+                        void* stream) {
   if (bad_args(k, n, tiles_len)) return static_cast<int>(cudaErrorInvalidValue);
-  bin_kernel<true><<<static_cast<unsigned>(num_tiles(n)), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kTwoOps) {
+    const cudaError_t err = cudaMemsetAsync(hist, 0, k * sizeof(int32_t), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  bin_kernel<true><<<static_cast<unsigned>(num_tiles(n)), kThreads, 0, s>>>(
       static_cast<const int32_t*>(deg), static_cast<const int32_t*>(bounds), k,
       static_cast<int32_t*>(groups), static_cast<int32_t*>(hist),
       static_cast<int32_t*>(tiles), static_cast<unsigned*>(ticket), n,
-      aligned(deg) && aligned(groups), offsets != 0);
+      aligned(deg) && aligned(groups));
   return static_cast<int>(cudaGetLastError());
 }
 
-// hist and each tile's offsets (as hist_bin with offsets) of groups given
+// hist and each tile's offsets (as hist_bin writes them) of groups given
 // as (n,) int32 values in [0, k).
 extern "C" int group_tiles(const void* groups, int k, void* hist, void* tiles,
                            int64_t tiles_len, void* ticket, int64_t n,
@@ -421,7 +444,7 @@ extern "C" int group_tiles(const void* groups, int k, void* hist, void* tiles,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(groups), nullptr, k, nullptr,
       static_cast<int32_t*>(hist), static_cast<int32_t*>(tiles),
-      static_cast<unsigned*>(ticket), n, aligned(groups), true);
+      static_cast<unsigned*>(ticket), n, aligned(groups));
   return static_cast<int>(cudaGetLastError());
 }
 

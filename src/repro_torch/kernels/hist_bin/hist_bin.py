@@ -7,8 +7,8 @@ first k with ``deg[v] >= bounds[k]`` (0 when none matches, the TPU kernel's
 argmax of the >= mask), and ``hist[k]`` counts group k.  The kernel takes
 any V, so the reference's padding to a tile (and the correction of the last
 bin that undoes it) has no counterpart here.  It works in tiles of
-:data:`TILE` vertices and, for ``dbg_bin``, also writes each tile's offsets
-(every group's vertices in earlier tiles); the rank kernel
+:data:`TILE` vertices and also writes each tile's offsets (every group's
+vertices in earlier tiles), which ``dbg_bin`` needs; the rank kernel
 (:func:`stable_rank`) turns groups, histogram and offsets into the stable
 mapping that the reference computes in XLA.
 
@@ -40,10 +40,11 @@ TILE = 4096
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "hist_bin.cu"
 _VARIANTS = {"all": []}
 _KERNELS: Dict[str, ctypes._CFuncPtr] = {}
-#: One zeroed uint32 per device: the binning kernel's ticket, which its
-#: last block resets.  Calls on one device must not run on two streams at
-#: once.
-_TICKETS: Dict[int, torch.Tensor] = {}
+#: One zeroed uint32 per (device, raw stream): the binning kernel's ticket,
+#: which its last block resets.  Launches on one stream run in order, so no
+#: two grids meet on a ticket; calls on two streams at once each take their
+#: own.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
@@ -54,7 +55,7 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
     if lib.hist_bin_tile() != TILE:
         raise RuntimeError(f"hist_bin.cu tiles {lib.hist_bin_tile()} "
                            f"vertices, the wrapper {TILE}")
-    for name, args in (("hist_bin", [p, p, i32, p, p, p, i64, p, i64, i32, p]),
+    for name, args in (("hist_bin", [p, p, i32, p, p, p, i64, p, i64, p]),
                        ("group_tiles", [p, i32, p, p, i64, p, i64, p]),
                        ("stable_rank", [p, i32, p, p, i64, p, i64, p])):
         fn = getattr(lib, name)
@@ -102,10 +103,12 @@ def _tiles(v: int, k: int, device) -> torch.Tensor:
 
 
 def _ticket(device) -> torch.Tensor:
-    t = _TICKETS.get(device.index)
+    """The ticket of ``device``'s current stream, the one the launch
+    takes (made zero on that stream at its first use)."""
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    t = _TICKETS.get(key)
     if t is None:
-        t = _TICKETS[device.index] = torch.zeros(1, dtype=torch.int32,
-                                                 device=device)
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return t
 
 
@@ -134,17 +137,16 @@ def hist_bin(degrees: torch.Tensor,
         return hist_bin_ref(degrees, boundaries)
     if degrees.device.type != "cuda":
         raise ValueError(f"hist_bin runs on cuda or cpu, not {degrees.device}")
-    groups, hist, _ = bin_tiles(degrees, boundaries, offsets=False)
+    groups, hist, _ = bin_tiles(degrees, boundaries)
     return groups, hist
 
 
-def bin_tiles(degrees: torch.Tensor, boundaries: torch.Tensor,
-              offsets: bool = True):
+def bin_tiles(degrees: torch.Tensor, boundaries: torch.Tensor):
     """The binning kernel on CUDA tensors: (groups, histogram, tiles), where
-    ``tiles`` (ceil(V / TILE), K rounded up to a power of two) int32 holds,
-    with ``offsets``, every group's vertices in the tiles before each tile
-    (what :func:`stable_rank` takes with the histogram), else each tile's
-    group counts.  Counts one launch in ``hist_bin.launches``."""
+    ``tiles`` (ceil(V / TILE), K rounded up to a power of two) int32 holds
+    every group's vertices in the tiles before each tile (what
+    :func:`stable_rank` takes with the histogram).  Counts one launch in
+    ``hist_bin.launches``."""
     v = _check_vertices(degrees, "degrees")
     dev = degrees.device
     k = boundaries.shape[0]
@@ -156,17 +158,16 @@ def bin_tiles(degrees: torch.Tensor, boundaries: torch.Tensor,
     err = launch_on(dev, load_kernels()["hist_bin"], degrees.data_ptr(),
                     boundaries.data_ptr(), k, groups.data_ptr(),
                     hist.data_ptr(), tiles.data_ptr(), tiles.numel(),
-                    _ticket(dev).data_ptr(), v, int(offsets))
+                    _ticket(dev).data_ptr(), v)
     _raise(err, "hist_bin")
     hist_bin.launches += 1
     return groups, hist, tiles
 
 
 def group_tiles(groups: torch.Tensor, num_groups: int):
-    """(histogram, tiles) as :func:`bin_tiles` with ``offsets`` gives them,
-    for int32 ``groups`` in ``[0, num_groups)`` on the card: the binning
-    kernel counting groups it is given (one launch in
-    ``hist_bin.launches``)."""
+    """(histogram, tiles) as :func:`bin_tiles` gives them, for int32
+    ``groups`` in ``[0, num_groups)`` on the card: the binning kernel
+    counting groups it is given (one launch in ``hist_bin.launches``)."""
     v = _check_vertices(groups, "groups")
     _check_bins(num_groups)
     dev = groups.device
@@ -185,7 +186,7 @@ def stable_rank(groups: torch.Tensor, hist: torch.Tensor,
     """Listing 1 step 3 on the card: mapping (V,) int64, new id = the start
     of my group (from ``hist``) + my group's vertices in earlier tiles
     (``tiles``) + my rank among my tile's earlier vertices of my group.
-    ``hist`` and ``tiles`` are what :func:`bin_tiles` (with ``offsets``) or
+    ``hist`` and ``tiles`` are what :func:`bin_tiles` or
     :func:`group_tiles` returned for these groups.  Counts one launch in
     ``stable_rank.launches``."""
     v = _check_vertices(groups, "groups")

@@ -47,5 +47,5 @@ def dbg_bin(degrees: torch.Tensor, boundaries: torch.Tensor):
         groups, hist = hist_bin(degrees, boundaries)
         return (stable_mapping_ref(groups, boundaries.shape[0]), groups,
                 hist)
-    groups, hist, tiles = bin_tiles(degrees, boundaries, offsets=True)
+    groups, hist, tiles = bin_tiles(degrees, boundaries)
     return stable_rank(groups, hist, tiles), groups, hist

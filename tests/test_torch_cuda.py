@@ -375,6 +375,52 @@ def test_dbg_bin_matches_plain_path_bitwise(cuda, k):
     torch.cuda.synchronize()
 
 
+def test_hist_bin_takes_a_ticket_per_stream(cuda, monkeypatch):
+    """Calls on two streams at once never meet on one ticket: the ticket a
+    launch is given is one per stream (the same for every call on a
+    stream, another on the other), and hist_bin queued on two streams in
+    turn behind a device sleep gives the plain version's groups and
+    histogram in every call.  (Grids of two streams run together only now
+    and then, so the test also reads the tickets.)"""
+    import importlib
+
+    from repro_torch.kernels.hist_bin import hist_bin, hist_bin_ref
+
+    module = importlib.import_module("repro_torch.kernels.hist_bin.hist_bin")
+    launch, seen = module.launch_on, []
+
+    def spy(device, fn, *args):  # args end with (ticket, V)
+        seen.append((torch.cuda.current_stream(device).cuda_stream, args[-2]))
+        return launch(device, fn, *args)
+
+    monkeypatch.setattr(module, "launch_on", spy)
+    n = 2 ** 20 + 5
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    d = torch.randint(0, 5000, (n + 8,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    b = torch.tensor([900, 300, 40, 7, 0], dtype=torch.int32, device=cuda)
+    cases = [d[:n], d[8:]]  # one size: the streams keep step
+    refs = [hist_bin_ref(x, b) for x in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(40_000_000)  # ~20 ms: both queues fill first
+    outs = []
+    for _ in range(128):
+        for st, x in zip(streams, cases):
+            with torch.cuda.stream(st):
+                outs.append(hist_bin(x, b))
+    torch.cuda.synchronize()
+    tickets = {st.cuda_stream: {t for s, t in seen if s == st.cuda_stream}
+               for st in streams}
+    assert all(len(t) == 1 for t in tickets.values()), tickets
+    assert len(set.union(*tickets.values())) == 2, tickets
+    bad = [i for i, (got, want) in enumerate(zip(outs, itertools.cycle(refs)))
+           if not all(torch.equal(g, w) for g, w in zip(got, want))]
+    assert not bad, f"{len(bad)} of {len(outs)} calls differ: {bad[:8]}"
+
+
 def test_hist_bin_is_one_device_operation(cuda):
     """The kernel writes its own histogram: no fill ahead of it.  dbg_bin
     is two kernels.  Device events are read through the CUDA runtime calls

@@ -175,3 +175,23 @@ def test_tile_matches_the_cuda_source():
     per = int(re.search(r"kPerThread = (\d+);", src).group(1))
     assert "kTile = kThreads * kPerThread;" in src
     assert threads * per == TILE
+
+
+def test_ticket_is_one_per_stream(monkeypatch):
+    """The binning kernel's ticket is keyed by device and current stream:
+    calls on one stream share one (they run in order), a call on another
+    stream takes its own, and a new ticket starts at 0."""
+    import importlib
+
+    module = importlib.import_module("repro_torch.kernels.hist_bin.hist_bin")
+    monkeypatch.setattr(module, "_TICKETS", {})
+    stream = {"now": 11}
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: stream["now"], raising=False)
+    dev = torch.device("cpu")
+    first, again = module._ticket(dev), module._ticket(dev)
+    stream["now"] = 12
+    other = module._ticket(dev)
+    assert first is again and other is not first
+    assert first.tolist() == other.tolist() == [0]
+    assert other.dtype == torch.int32
