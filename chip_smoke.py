@@ -23,7 +23,10 @@ Phases (any failure raises, and the script exits non-zero):
      average degree 20) at 2^21 vertices, reordered with DBG on out-degree,
      then PageRank (original and DBG orderings), PageRank-delta, SSSP, BC and
      Radii on ``backend="ell"``, each held to the ``flat`` oracle on the same
-     card; K5's launch count must grow in every app;
+     card; K5's launch count must grow in every app; then each app's warm
+     median (``warm_median``: one warm-up run, then the median, min and max
+     of ``EVAL_REPS`` runs on the host clock, synced at each end) on ``ell``
+     and ``flat``;
   5. times at the main path's PageRank pull: K5, its plain version, one
      library call (cuSPARSE SpMV through ``torch.sparse``) and the bound;
      K5 per tile class (device time alone, the host's issue time hidden
@@ -38,7 +41,8 @@ Phases (any failure raises, and the script exits non-zero):
      ``pack_spmv`` (K4) and ``dbg_spmv`` (K1) against the flat pull and the
      CSR oracle, and ``dbg_bin`` (hist_bin, then the stable-rank kernel)
      against the host DBG mapping, bitwise; every kernel's launch count,
-     read from zero, must be positive;
+     read from zero, must be positive; the apps' warm medians on
+     ``packed``;
   7. K4, K1 and hist_bin vs their plain versions on the card at the packed
      path's shapes: K4 on every hot table of the main-path graph (uint32
      ids), of ``kr``/small (uint16) and of a 256-vertex graph (uint8), each
@@ -62,28 +66,48 @@ Phases (any failure raises, and the script exits non-zero):
      and its launches (one of each kernel); hist_bin also as its two-op
      comparison build (``HIST_BIN_BUILDS``: a memset, then atomics), checked
      bitwise;
-  9. (the graph state freed) K2 vs its plain version on the card, bitwise:
+  9. the paper's evaluation on the phase-4 graph (nothing regenerated): the
+     orderings of ``EVAL_ORDERINGS`` (the paper's five techniques, the
+     original order and ``random_vertex``), each built once as ``ell``
+     (``original`` and ``dbg`` reuse phase 4's backends), with its host
+     reorder seconds; the five apps on the same problem (the main path's
+     root and Radii sources mapped through each ordering, SSSP on phase
+     4's weighted graph relabelled), held after mapping back to the
+     original order's results (PageRank in phase 4's band, SSSP and Radii
+     bitwise, BC's levels bitwise and centrality within 1e-5); each app's
+     warm median; one run with ``obs.counters`` installed, bitwise equal,
+     whose K5 launches must equal its passes times K5's launches per pass
+     (read from the tiles), with its passes, edges, modeled bytes and
+     modeled GB/s; PageRank-delta and BC also timed with the counters
+     installed; the cache model's L1/L2/L3 MPKA and AMAT of each
+     ordering's pull trace (``cachesim``, ``DEFAULT_TRACE_LEN``
+     accesses); Tables I-IV (``core.stats``) once; and one PageRank run
+     traced (``EVAL_TRACED``'s build and the run), saved, loaded back
+     through ``load_trace``, with one ``engine.build_backend`` span and an
+     ``edge_map`` counter event per pass; it prints a ``paper_eval`` JSON
+     line;
+ 10. (the graph state freed) K2 vs its plain version on the card, bitwise:
      ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
      widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
      Zipf ids, and at a T that is not a multiple of 32; all-hot and
      all-cold batches, int64 and strided ids too;
- 10. the LM serving path at reduced size, card against CPU: reduced Yi-9B
+ 11. the LM serving path at reduced size, card against CPU: reduced Yi-9B
      (GQA) and reduced OLMo-1B, same weights, ``generate`` (batch 2, prompt
      8, 8 new): logits of every step within rtol 1e-4, atol 1e-5, tokens
      equal;
- 11. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
+ 12. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
      float32, random weights from a seeded generator on the card) serves 4
      requests of 32 Zipf prompt tokens (DBG vocabulary) + 32 greedy tokens;
      K2 must launch once per ``decode_step`` (64), every token lies in the
      vocabulary, the last logits are finite, and the split gather of the
      served ids equals its plain version bitwise;
- 12. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
+ 13. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
      the plain version, ``F.embedding`` over the joined table and the
      bound, from an idle device and on the device alone; the wrapper's host
      time per call; and, under ``torch.profiler``, the device operations
      of one ``embed_lookup`` at a prefill and at a decode step (1 each) and
      of one hist_bin (1) and one dbg_bin call (2) at phase 8's call, read
-     together here: in runs that first profiled in phase 8, phase 12's
+     together here: in runs that first profiled in phase 8, phase 13's
      profile of the prefill lookup held no device event.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
@@ -125,6 +149,11 @@ HIST_BIN_BUILDS = {"two_ops": ["-DHIST_BIN_TWO_OPS=1"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
+EVAL_REPS = 5              # timed warm runs per app (median), after one warm-up
+# the paper's orderings (Fig. 3: random_vertex destroys structure), phase 9
+EVAL_ORDERINGS = ("original", "sort", "hubsort", "hubcluster", "dbg",
+                  "gorder_lite", "random_vertex")
+EVAL_TRACED = "sort"       # phase 9 traces this ordering's build and a PageRank
 
 
 def log(msg: str) -> None:
@@ -316,8 +345,54 @@ def build_graphs(log2_vertices=LOG2_VERTICES, seed=0):
     return g, g_dbg, gw_dbg, res
 
 
+def app_runs(v, sources, root=0):
+    """App name -> the call on a backend: the five apps as the main path
+    runs them (SSSP takes the weighted backend)."""
+    from repro_torch import apps
+
+    return {
+        "pagerank": lambda ga: apps.pagerank(ga),
+        # The default absolute epsilon (1e-7) is above the first-round delta
+        # (0.15 / V) once V > 1.5M, so nothing would be active; a threshold
+        # of 1% of the uniform rank (Ligra's relative epsilon2) keeps the
+        # push frontier meaningful at this size.
+        "pagerank_delta": lambda ga: apps.pagerank_delta(
+            ga, epsilon=0.01 / v),
+        "sssp": lambda ga: apps.sssp(ga, root),
+        "bc": lambda ga: apps.bc(ga, root),
+        "radii": lambda ga: apps.radii(ga, sources),
+    }
+
+
+def warm_median(fn, reps=None):
+    """One warm-up call of ``fn()``, then ``reps`` (``EVAL_REPS``) timed
+    calls on the host clock, each between two device syncs: the median,
+    min and max seconds, and the last call's output."""
+    import statistics
+
+    out = fn()
+    _sync()
+    times = []
+    for _ in range(reps or EVAL_REPS):
+        _sync()
+        t = time.perf_counter()
+        out = fn()
+        _sync()
+        times.append(time.perf_counter() - t)
+    return dict(median_s=statistics.median(times), min_s=min(times),
+                max_s=max(times)), out
+
+
+def _span(t, prefix=""):
+    """``median [min-max]`` of a ``warm_median`` record (keys ``prefix`` +
+    ``median_s``, ...)."""
+    return (f"{t[prefix + 'median_s']:.4f} [{t[prefix + 'min_s']:.4f}-"
+            f"{t[prefix + 'max_s']:.4f}]")
+
+
 def main_path(g, g_dbg, gw_dbg, device):
-    """Run the five apps on ``ell`` and on ``flat``; return per-app records."""
+    """Run the five apps on ``ell`` and on ``flat``, once each, checked;
+    return the backends, the runs and per-app records."""
     import torch
 
     from repro_torch import apps
@@ -333,19 +408,13 @@ def main_path(g, g_dbg, gw_dbg, device):
 
     sources = apps.radii_sources(g_dbg.num_vertices, 8,
                                  generator=torch.Generator().manual_seed(0))
-    runs = {
-        "pagerank[original]": ("orig", lambda ga: apps.pagerank(ga)),
-        "pagerank[dbg]": ("dbg", lambda ga: apps.pagerank(ga)),
-        # The default absolute epsilon (1e-7) is above the first-round delta
-        # (0.15 / V) once V > 1.5M, so nothing would be active; a threshold
-        # of 1% of the uniform rank (Ligra's relative epsilon2) keeps the
-        # push frontier meaningful at this size.
-        "pagerank_delta": ("dbg", lambda ga: apps.pagerank_delta(
-            ga, epsilon=0.01 / ga.num_vertices)),
-        "sssp": ("dbg_w", lambda ga: apps.sssp(ga, 0)),
-        "bc": ("dbg", lambda ga: apps.bc(ga, 0)),
-        "radii": ("dbg", lambda ga: apps.radii(ga, sources)),
-    }
+    fns = app_runs(g_dbg.num_vertices, sources)
+    runs = {"pagerank[original]": ("orig", fns["pagerank"]),
+            "pagerank[dbg]": ("dbg", fns["pagerank"]),
+            "pagerank_delta": ("dbg", fns["pagerank_delta"]),
+            "sssp": ("dbg_w", fns["sssp"]),
+            "bc": ("dbg", fns["bc"]),
+            "radii": ("dbg", fns["radii"])}
     records = {}
     for name, (key, fn) in runs.items():
         flat, ell = backends[key]
@@ -363,10 +432,20 @@ def main_path(g, g_dbg, gw_dbg, device):
         if fl != 0:
             raise AssertionError(f"{name}: flat launched K5")
         iters = _compare_app(name, eo, fo)
-        records[name] = dict(ell_s=es, flat_s=fs, launches=el, iters=iters)
-        log(f"app {name}: ell {es:.3f} s, flat {fs:.3f} s, "
+        records[name] = dict(ell_first_s=es, flat_first_s=fs, launches=el,
+                             iters=iters)
+        log(f"app {name}: ell {es:.3f} s, flat {fs:.3f} s (first runs), "
             f"iterations {iters}, K5 launches {el}")
-    return backends, records
+    return backends, runs, records
+
+
+def time_apps(runs, backends, records, names):
+    """Warm medians (``warm_median``) of every app on each backend of
+    ``names`` (index into ``backends[key]``), into ``records``."""
+    for app, (key, fn) in runs.items():
+        for bname, i in names.items():
+            t, _ = warm_median(lambda: fn(backends[key][i]))
+            records[app].update({f"{bname}_{k}": x for k, x in t.items()})
 
 
 def _compare_app(name, eo, fo):
@@ -617,14 +696,12 @@ def packed_path(g, g_dbg, gw_dbg, res, device):
 
     sources = apps.radii_sources(g_dbg.num_vertices, 8,
                                  generator=torch.Generator().manual_seed(0))
-    runs = {
-        "pagerank[dbg]": ("dbg", lambda ga: apps.pagerank(ga)),
-        "pagerank_delta": ("dbg", lambda ga: apps.pagerank_delta(
-            ga, epsilon=0.01 / ga.num_vertices)),
-        "sssp": ("dbg_w", lambda ga: apps.sssp(ga, 0)),
-        "bc": ("dbg", lambda ga: apps.bc(ga, 0)),
-        "radii": ("dbg", lambda ga: apps.radii(ga, sources)),
-    }
+    fns = app_runs(g_dbg.num_vertices, sources)
+    runs = {"pagerank[dbg]": ("dbg", fns["pagerank"]),
+            "pagerank_delta": ("dbg", fns["pagerank_delta"]),
+            "sssp": ("dbg_w", fns["sssp"]),
+            "bc": ("dbg", fns["bc"]),
+            "radii": ("dbg", fns["radii"])}
     records = {}
     for name, (key, fn) in runs.items():
         per = {}
@@ -641,9 +718,10 @@ def packed_path(g, g_dbg, gw_dbg, res, device):
         if fl != 0:
             raise AssertionError(f"{name}: flat launched K5")
         iters = _compare_app(name, po, fo)
-        records[name] = dict(packed_s=ps, flat_s=fs, launches=pl, iters=iters)
-        log(f"  app {name}: packed {ps:.3f} s, flat {fs:.3f} s, "
-            f"iterations {iters}, K5 launches {pl}")
+        records[name] = dict(packed_first_s=ps, flat_first_s=fs, launches=pl,
+                             iters=iters)
+        log(f"  app {name}: packed {ps:.3f} s, flat {fs:.3f} s (first "
+            f"runs), iterations {iters}, K5 launches {pl}")
 
     v = g_dbg.num_vertices
     gen = torch.Generator(device=device).manual_seed(2)
@@ -685,6 +763,7 @@ def packed_path(g, g_dbg, gw_dbg, res, device):
     log(f"  dbg_bin: mapping equals the host DBG mapping bitwise; histogram "
         f"{hist.tolist()}")
     return dict(flats=flats, packs=packs, groups=groups, records=records,
+                runs=runs,
                 deg_t=deg_t, b_t=b_t, out_deg=out_deg, spec=spec,
                 max_err={"hot_spmv": max(err, err_w), "ell_spmv": err_d})
 
@@ -1129,6 +1208,254 @@ def time_hist_bin(pk, reps, builds):
 
 
 # ---------------------------------------------------------------- phase 9
+def _same(a, b):
+    """Bitwise equality of two app outputs (tuples of tensors and ints)."""
+    import torch
+
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    return a == b
+
+
+def _mapped_back(app, out, m):
+    """An app's output under an ordering with mapping ``m`` (original id ->
+    new id, a device tensor), indexed by original vertex id."""
+    if app == "bc":
+        c, dist, levels = out
+        return c[m], dist[m], levels
+    y, it = out
+    return y[m], it
+
+
+def _k5_launches_per_pass(ga):
+    """K5 launches of one ``fused_edge_map`` over ``ga``'s tiles: two for a
+    class wider than 1,024 lanes (pieces, then the fold), else one."""
+    from repro_torch.kernels._wrap import lanes_per_row
+
+    return sum(2 if lanes_per_row(t.idx.shape[1]) == 256 else 1
+               for t in ga.in_tiles)
+
+
+def _cache_model(graph):
+    """L1/L2/L3 MPKA and AMAT of ``graph``'s pull trace, capped at
+    ``DEFAULT_TRACE_LEN`` accesses, on the hierarchy scaled to its size."""
+    from repro_torch import cachesim
+
+    t0 = time.perf_counter()
+    levels = cachesim.scaled_hierarchy(graph.num_vertices)
+    d = cachesim.stack_distances(cachesim.to_blocks(cachesim.property_trace(
+        graph, "pull", max_len=cachesim.DEFAULT_TRACE_LEN)))
+    out = dict(cachesim.mpka(d, levels), amat_cycles=cachesim.amat_cycles(
+        d, levels), accesses=int(d.shape[0]))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
+    """The paper's evaluation at the main path's size: every ordering of
+    ``EVAL_ORDERINGS`` x the five apps on ``ell``, held to the original
+    order after mapping back; warm medians; a counted run per cell against
+    K5's launches; the cache model per ordering; Tables I-IV; one traced
+    PageRank.  ``ells`` holds phase 4's ``orig``, ``dbg`` and ``dbg_w``
+    ell backends.  Returns the rows of the ``paper_eval`` line and the
+    tables."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import apps
+    from repro_torch.core import stats
+    from repro_torch.graph import csr
+    from repro_torch.launch.quickstart import reordered
+    from repro_torch.obs import MetricsRegistry, counters
+    from repro_torch.obs import trace as obs_trace
+
+    v = g.num_vertices
+    inv_dbg = np.empty(v, np.int64)
+    inv_dbg[res.mapping] = np.arange(v, dtype=np.int64)
+    # the main path's SSSP/BC root (0) and Radii sources, drawn in DBG ids,
+    # as original ids: the DBG ordering runs phase 4's problem
+    root = int(inv_dbg[0])
+    sources = inv_dbg[apps.radii_sources(
+        v, 8, generator=torch.Generator().manual_seed(0)).numpy()]
+    tables = json.loads(json.dumps({  # numpy scalars as plain floats
+        "hot_vertices": stats.hot_vertex_stats(g),
+        "hot_per_cache_block": stats.hot_per_cache_block(g),
+        "hot_footprint_mb": stats.hot_footprint_mb(g),
+        "degree_ranges": stats.degree_range_distribution(g)}))
+    log(f"  Table I (hot vertices, % of V and of E): "
+        f"{tables['hot_vertices']}")
+    log(f"  Table II (hot vertices per cache block): "
+        f"{tables['hot_per_cache_block']:.4f}; Table III (hot footprint): "
+        f"{tables['hot_footprint_mb']:.4f} MB")
+    log(f"  Table IV (hot vertices by degree range): "
+        f"{tables['degree_ranges']}")
+
+    rows, want, trace_tr = [], {}, None
+    for ordering in EVAL_ORDERINGS:
+        t0 = time.perf_counter()
+        if ordering == "original":
+            g_x, mapping, reorder_s = g, np.arange(v, dtype=np.int64), 0.0
+        elif ordering == "dbg":
+            g_x, mapping, reorder_s = g_dbg, res.mapping, res.seconds
+        else:
+            g_x, r = reordered(g, ordering)
+            mapping, reorder_s = r.mapping, r.seconds
+        t1 = time.perf_counter()
+        gw_x = (gw_dbg if ordering == "dbg"
+                else csr.relabel(gw_dbg, mapping[inv_dbg]))
+        t2 = time.perf_counter()
+        traced = ordering == EVAL_TRACED
+        if ordering in ("original", "dbg"):  # phase 4's backends
+            ell = ells["orig" if ordering == "original" else "dbg"]
+        else:
+            if traced:  # the trace holds this build's span
+                trace_tr = obs_trace.enable()
+            ell = apps.to_arrays(g_x, backend="ell", device=device)
+            obs_trace.disable()
+        ell_w = (ells["dbg_w"] if ordering == "dbg"
+                 else apps.to_arrays(gw_x, backend="ell", device=device))
+        _sync()
+        t3 = time.perf_counter()
+        cache = _cache_model(g_x)
+        # the layer under the apps: one PageRank-shaped pull (K5 over every
+        # class) on the device alone, in this ordering
+        x = torch.rand(v, generator=torch.Generator(device=device)
+                       .manual_seed(2), device=device)
+        pull_ms = _events_ms(lambda: ell.pull(x, reduce="sum"), REPS,
+                             device_only=True)
+        log(f"  ordering {ordering}: host reorder {reorder_s:.2f} s (mapping "
+            f"+ CSR rebuild; {t1 - t0:.1f} s here), weighted relabel "
+            f"{t2 - t1:.1f} s, ell backends {t3 - t2:.1f} s; one pull on "
+            f"the device alone {pull_ms:.4f} ms; cache model of the pull "
+            f"trace ({cache['accesses']} accesses, {cache['seconds']:.1f} "
+            f"s): L1 {cache['l1_mpka']:.2f}, L2 {cache['l2_mpka']:.2f}, L3 "
+            f"{cache['l3_mpka']:.2f} MPKA, AMAT {cache['amat_cycles']:.3f} "
+            "cycles")
+        m = torch.from_numpy(mapping).to(device)
+        fns = app_runs(v, torch.from_numpy(mapping[sources]),
+                       root=int(mapping[root]))
+        for app, fn in fns.items():
+            ga = ell_w if app == "sssp" else ell
+            t, out = warm_median(lambda: fn(ga))
+            if ordering == "original":
+                want[app] = out
+            else:
+                try:
+                    _compare_app(app, _mapped_back(app, out, m), want[app])
+                except AssertionError as e:
+                    raise AssertionError(f"{ordering}: {e}") from None
+            # one counted run: bitwise the same output, K5's launches from
+            # the counters' passes and the tiles
+            n0 = _ell_launches()
+            c = counters.install(registry=MetricsRegistry())
+            try:
+                counted = fn(ga)
+            finally:
+                counters.uninstall()
+            _sync()
+            launches = _ell_launches() - n0
+            if not _same(counted, out):
+                raise AssertionError(f"{ordering} {app}: the counted run's "
+                                     "output differs (must be bitwise)")
+            s = c.summary()
+            passes = {d: int(s.get(f"edge_map.passes.ell.{d}", 0))
+                      for d in ("pull", "push", "out_sum")}
+            expect = ((passes["pull"] + passes["push"])
+                      * _k5_launches_per_pass(ga))
+            if launches == 0 or launches != expect:
+                raise AssertionError(
+                    f"{ordering} {app}: {launches} K5 launches, the counters' "
+                    f"passes {passes} give {expect}")
+            row = dict(ordering=ordering, app=app, **t, reorder_s=reorder_s,
+                       pull_device_ms=pull_ms,
+                       iters=out[-1], launches=launches, passes=passes,
+                       edges=int(s["edge_map.edges"]),
+                       model_bytes=int(s["edge_map.model_bytes"]),
+                       model_gb_per_s=s["edge_map.model_bytes"]
+                       / t["median_s"] / 1e9,
+                       **{k: cache[k] for k in ("l1_mpka", "l2_mpka",
+                                                "l3_mpka", "amat_cycles")})
+            if app in ("pagerank_delta", "bc"):  # the counters' own cost
+                counters.install(registry=MetricsRegistry())
+                try:
+                    ti, _ = warm_median(lambda: fn(ga))
+                finally:
+                    counters.uninstall()
+                row.update({f"instrumented_{k}": x for k, x in ti.items()})
+            if traced and app == "pagerank":
+                row["trace_events"] = _traced_pagerank(trace_tr, fn, ga, out)
+            rows.append(row)
+            cost = ("" if "instrumented_median_s" not in row else
+                    f"; counters installed {_span(row, 'instrumented_')}")
+            log(f"    {app}: {_span(t)} s{cost}, iterations "
+                f"{row['iters']}, K5 launches {launches}, passes {passes}, "
+                f"edges {row['edges']}, modeled {row['model_bytes']} B "
+                f"({row['model_gb_per_s']:.1f} GB/s, the reference's model "
+                f"over the padded planes)")
+        del ell, ell_w, g_x, gw_x, m, x
+        gc.collect()
+        torch.cuda.empty_cache()
+    # The DBG ordering's backends are phase 4's and still on the card: its
+    # five apps timed again after every other ordering show how far a cell
+    # drifts within the phase.
+    fns = app_runs(v, torch.from_numpy(res.mapping[sources]),
+                   root=int(res.mapping[root]))
+    for row in rows:
+        if row["ordering"] == "dbg":
+            ga = ells["dbg_w"] if row["app"] == "sssp" else ells["dbg"]
+            t, _ = warm_median(lambda: fns[row["app"]](ga))
+            row.update({f"again_{k}": x for k, x in t.items()})
+            log(f"    dbg {row['app']} again, after the other orderings: "
+                f"{_span(t)} s (first {_span(row)})")
+    return rows, tables
+
+
+def _traced_pagerank(tr, fn, ga, want):
+    """One PageRank run on ``ga`` with the counters installed and tracing
+    on (``tr`` already holds the backend's ``engine.build_backend`` span),
+    saved to a temporary file and loaded back through ``load_trace``: the
+    output bitwise equal to ``want``, one ``edge_map`` counter event per
+    pass.  Returns the trace's event count."""
+    import os
+    import tempfile
+
+    from repro_torch.obs import MetricsRegistry, counters, load_trace
+    from repro_torch.obs import trace as obs_trace
+
+    obs_trace.enable(tr)
+    c = counters.install(registry=MetricsRegistry())
+    try:
+        out = fn(ga)
+    finally:
+        counters.uninstall()
+        obs_trace.disable()
+    _sync()
+    if not _same(out, want):
+        raise AssertionError("the traced PageRank's output differs (must be "
+                             "bitwise)")
+    passes = sum(v for k, v in c.summary().items()
+                 if k.startswith("edge_map.passes."))
+    with tempfile.TemporaryDirectory() as d:
+        events = load_trace(tr.save(os.path.join(d, "trace.json")))[
+            "traceEvents"]
+    builds = [e for e in events
+              if e["ph"] == "X" and e["name"] == "engine.build_backend"]
+    samples = [e for e in events if e["ph"] == "C" and e["name"] == "edge_map"]
+    if len(builds) != 1 or len(samples) != passes:
+        raise AssertionError(f"trace: {len(builds)} engine.build_backend "
+                             f"spans, {len(samples)} edge_map counter events "
+                             f"for {passes} passes")
+    log(f"    trace of one PageRank run: {len(events)} events, valid; the "
+        f"build span {builds[0]['dur'] / 1e6:.2f} s, {len(samples)} counter "
+        f"events = passes")
+    return len(events)
+
+
+# ---------------------------------------------------------------- phase 10
 def _zipf_tokens(vocab_size, batch, seq_len):
     """(batch, seq_len) int32 ids of the port's ``ZipfPipeline`` (seed 0),
     remapped through DBG over the pipeline's own token frequencies, and the
@@ -1198,7 +1525,7 @@ def k2_grid(device):
     return cases, err
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 11
 def lm_parity(device):
     """Reduced Yi-9B (GQA) and OLMo-1B, the same weights on the CPU and the
     card: greedy tokens equal, every step's logits within rtol 1e-4, atol
@@ -1233,10 +1560,10 @@ def lm_parity(device):
     return worst
 
 
-# ---------------------------------------------------------------- phase 11
+# ---------------------------------------------------------------- phase 12
 def lm_serve(device):
     """Yi-9B at full width serves LM_BATCH requests through ``generate``.
-    Returns the model and what phase 12 and the ``kernels`` line need."""
+    Returns the model and what phase 13 and the ``kernels`` line need."""
     import statistics
 
     import torch
@@ -1364,7 +1691,7 @@ def profile_decode_step(model, tokens):
                 top=[(name[:90], n, ms) for name, (n, ms) in top[:8]])
 
 
-# ---------------------------------------------------------------- phase 12
+# ---------------------------------------------------------------- phase 13
 def _host_us(fn, n=1000):
     """Host microseconds per ``fn()`` over ``n`` calls issued with no sync
     between them: what the caller's thread spends to issue one call."""
@@ -1559,10 +1886,14 @@ def main() -> int:
     # 4. the main path; the launch counts are read from zero
     _reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    backends, records = main_path(g, g_dbg, gw_dbg, dev)
+    backends, runs, records = main_path(g, g_dbg, gw_dbg, dev)
     ell_path = _read_launches()
     log(f"main path: launches {ell_path}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    time_apps(runs, backends, records, {"ell": 1, "flat": 0})
+    log(f"main path: warm medians of {EVAL_REPS} runs each, ell and flat "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # 5. K5 times
     flat, ell = backends["dbg"]
@@ -1590,6 +1921,7 @@ def main() -> int:
         f"{t['padded_bound_ms']:.4f} ms ({t['padded_bytes']} B)")
     log(json.dumps({"apps": records, "edges": g.num_edges,
                     "vertices": g.num_vertices, "k5_per_class": t["per_class"]}))
+    ells = {key: b[1] for key, b in backends.items()}  # phase 9's
     del backends, flat, ell
     gc.collect()
     torch.cuda.empty_cache()
@@ -1606,12 +1938,18 @@ def main() -> int:
     log(f"packed path: launches {packed}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    time_apps(pk["runs"], {key: (pk["packs"][key],) for key in pk["packs"]},
+              pk["records"], {"packed": 0})
+    log(f"packed path: warm medians of {EVAL_REPS} runs each "
+        f"({time.perf_counter() - t0:.1f} s)")
     log(json.dumps({"packed_apps": pk["records"]}))
     for app, rec in records.items():
-        p_s = pk["records"].get(app, {}).get("packed_s")
-        log(f"app {app}, seconds per run: ell {rec['ell_s']:.4f}, packed "
-            + ("-" if p_s is None else f"{p_s:.4f}")
-            + f", flat {rec['flat_s']:.4f}")
+        p = pk["records"].get(app)
+        log(f"app {app}, seconds per run (median [min-max] of {EVAL_REPS} "
+            f"warm runs): ell {_span(rec, 'ell_')}, packed "
+            + ("-" if p is None else _span(p, "packed_"))
+            + f", flat {_span(rec, 'flat_')}")
 
     # 7. K4, K1 and hist_bin vs their plain versions
     t0 = time.perf_counter()
@@ -1673,10 +2011,22 @@ def main() -> int:
         f"{hb['dbg_bin_bound_ms']:.4f} ms; host mapping (group_reorder) "
         f"{hb['host_mapping_ms']:.2f} ms ({time.perf_counter() - t0:.1f} s)")
 
-    # 9. K2 vs plain, once the graph state has left the card
     pk_err = pk["max_err"]
-    deg_t, b_t = pk["deg_t"], pk["b_t"]  # phase 12 profiles dbg_bin on them
-    del pk, small_tiles, small, g, g_dbg, gw_dbg, res
+    deg_t, b_t = pk["deg_t"], pk["b_t"]  # phase 13 profiles dbg_bin on them
+    del pk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the paper's evaluation: every ordering x app on ell
+    t0 = time.perf_counter()
+    evals, tables = paper_eval(g, g_dbg, gw_dbg, res, ells, dev)
+    log(f"paper evaluation: {len(EVAL_ORDERINGS)} orderings x "
+        f"{len(evals) // len(EVAL_ORDERINGS)} apps, all checks hold "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(json.dumps({"paper_eval": evals, "tables": tables, "card": smi}))
+
+    # 10. K2 vs plain, once the graph state has left the card
+    del ells, small_tiles, small, g, g_dbg, gw_dbg, res
     gc.collect()
     torch.cuda.empty_cache()
     if torch.backends.cuda.matmul.allow_tf32:
@@ -1689,13 +2039,13 @@ def main() -> int:
         f"bitwise equal, max |err| {e9} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 10. the LM serving path at reduced size, card against CPU
+    # 11. the LM serving path at reduced size, card against CPU
     t0 = time.perf_counter()
     used = lm_parity(dev)
     log(f"LM parity, card vs CPU: worst logit gap {used:.3g} of the band "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 11. the LM serving path at full width; counts read from zero inside
+    # 12. the LM serving path at full width; counts read from zero inside
     t0 = time.perf_counter()
     model, served, lm = lm_serve(dev)
     prof = profile_decode_step(model, served)
@@ -1708,7 +2058,7 @@ def main() -> int:
     for kname, n, ms in prof["top"]:
         log(f"    {ms:9.3f} ms  {n:4d} x  {kname}")
 
-    # 12. K2's times
+    # 13. K2's times
     t0 = time.perf_counter()
     k2 = time_k2(model, served, REPS)
     for label, m in k2.items():
@@ -1726,7 +2076,7 @@ def main() -> int:
     # the device operations of what the serving loop passes to embed_lookup
     # (a prefill step's strided column of the prompt, a decode step's (B, 1)
     # greedy pick) and of hist_bin and dbg_bin at phase 8's call: all here,
-    # after phase 11's session, as this process's profiler reads reliably
+    # after phase 12's session, as this process's profiler reads reliably
     prefill, decode = served[:, 1:2], served[:, -1:].contiguous()
     with torch.no_grad():
         ops = _device_ops({

@@ -42,6 +42,7 @@ import torch
 from ..device import resolve_device
 from ..graph import csr
 from ..kernels.edge_map.edge_map import reduce_identity
+from ..obs import trace as obs_trace
 
 __all__ = [
     "GraphArrays",
@@ -402,7 +403,8 @@ def to_arrays(
 
     Knobs are validated against ``BACKEND_KNOBS``: unknown names raise;
     knobs the chosen backend does not consume warn and are dropped, or
-    raise with ``strict=True``.
+    raise with ``strict=True``.  The build runs inside an
+    ``engine.build_backend`` span (a no-op while tracing is off).
     """
     dev = resolve_device(device)
     accepted, ignored = validate_knobs(backend, knobs, strict=strict)
@@ -412,17 +414,21 @@ def to_arrays(
             f"{sorted(ignored)} — not consumed by this backend "
             "(pass strict=True to make this an error)",
             stacklevel=2)
-    return resolve_backend(backend)(g, device=dev, **accepted)
+    with obs_trace.span("engine.build_backend", cat="engine",
+                        backend=backend, vertices=g.num_vertices,
+                        edges=g.num_edges):
+        return resolve_backend(backend)(g, device=dev, **accepted)
 
 
 # ---------------------------------------------------------------------------
 # instrumentation hook — one check per dispatch
 # ---------------------------------------------------------------------------
 
-#: When set, every ``edge_map_pull`` / ``edge_map_push`` / ``out_edge_sum``
-#: dispatch calls ``hook.on_pass(ga, direction, prop, kw)`` BEFORE running;
-#: the hook must not touch operand values.  ``None`` (the default) costs one
-#: ``is not None`` per dispatch.
+#: When set (``obs.counters.install()``), every ``edge_map_pull`` /
+#: ``edge_map_push`` / ``out_edge_sum`` dispatch calls
+#: ``hook.on_pass(ga, direction, prop, kw)`` BEFORE running; the hook must
+#: not write operands or synchronize the device.  ``None`` (the default)
+#: costs one ``is not None`` per dispatch.
 _EDGE_MAP_HOOK = None
 
 

@@ -1,5 +1,6 @@
-# The paper's degree-based grouping (DBG) framework, on the host in numpy.
-from . import reorder  # noqa: F401
+# The paper's degree-based grouping (DBG) framework, on the host in numpy,
+# with its evaluation's skew tables (stats) and the Gorder baseline.
+from . import gorder_lite, reorder, stats  # noqa: F401
 from .reorder import (  # noqa: F401
     GroupingSpec,
     ReorderResult,

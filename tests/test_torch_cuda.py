@@ -4,7 +4,8 @@ across blocks), K4 (narrow tables, and hub rows split across blocks), K1
 (every lane, and only the real ones), hist_bin and the stable rank
 (``dbg_bin``) and K2 against their plain versions, the apps on
 ``ell`` and ``packed`` against ``flat``, the LM's greedy decode on the card
-against the CPU, and the wrappers raising rather than falling back.
+against the CPU, the wrappers raising rather than falling back, and the
+edge-map counters' ``on_pass`` making no device synchronization.
 
 Run on a machine with an NVIDIA card and ``nvcc``:
 
@@ -651,3 +652,48 @@ def test_lm_generate_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(got.cpu(), want)
     for a, b in zip(got_lg, want_lg):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["ell", "packed", "flat"])
+def test_counters_on_pass_makes_no_device_sync(cuda, backend):
+    """The edge-map counters' ``on_pass`` of frontier passes (a shared and a
+    per-lane frontier) neither copies to the host nor synchronizes: it runs
+    under ``set_sync_debug_mode("error")`` (which does not see every
+    synchronizing call), and returns while the device still sleeps behind
+    it.  The densities it holds, folded when the registry is read, equal
+    the same passes' on the CPU."""
+    from repro_torch import apps
+    from repro_torch.obs import EdgeMapCounters, MetricsRegistry
+
+    g = _graph()
+    v = g.num_vertices
+    gen = torch.Generator().manual_seed(0)
+    prop = torch.rand((v, 4), generator=gen)
+    shared = torch.rand(v, generator=gen) < 0.3
+    planar = torch.rand((v, 4), generator=gen) < 0.6
+    densities = []
+    for dev in (cuda, torch.device("cpu")):
+        ga = apps.to_arrays(g, backend=backend, device=dev)
+        c = EdgeMapCounters(MetricsRegistry())
+        p, f1, f2 = prop.to(dev), shared.to(dev), planar.to(dev)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of device time
+        asleep = torch.cuda.Event()
+        asleep.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            c.on_pass(ga, "push", p[:, 0], {"src_frontier": f1})
+            c.on_pass(ga, "pull", p, {"src_frontier": f2,
+                                      "use_weights": True})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if dev.type == "cuda":
+            assert not asleep.query()  # on_pass waited for nothing
+        s = c.summary()
+        assert s[f"edge_map.passes.{backend}.push"] == 1
+        assert s["edge_map.frontier_density_count"] == 2
+        densities.append(c.registry.histogram(
+            "edge_map.frontier_density")._samples)
+    assert densities[0] == densities[1]
+    assert 0.0 < densities[0][0] < densities[0][1] < 1.0

@@ -56,8 +56,8 @@ def _imported_names(path: Path):
 
 def test_the_source_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in SOURCES if PORT in p.parents}
-    for pkg in ("apps", "configs", "core", "data", "graph", "kernels",
-                "launch", "lm", "pack"):
+    for pkg in ("apps", "cachesim", "configs", "core", "data", "graph",
+                "kernels", "launch", "lm", "obs", "pack"):
         assert pkg in scanned
     assert ROOT / "chip_smoke.py" in SOURCES
 
@@ -84,6 +84,14 @@ def test_to_arrays_defaults_to_cuda_and_raises_without_it(monkeypatch):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert to_arrays(g, device="cpu").in_deg.device.type == "cpu"
+
+
+def test_quickstart_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.launch import quickstart
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main(["--scale", "test"])
 
 
 def test_kernel_wrapper_takes_plain_version_only_for_cpu_tensors():
