@@ -86,35 +86,66 @@ Phases (any failure raises, and the script exits non-zero):
      through ``load_trace``, with one ``engine.build_backend`` span and an
      ``edge_map`` counter event per pass; it prints a ``paper_eval`` JSON
      line;
- 10. (the graph state freed) K2 vs its plain version on the card, bitwise:
+ 10. the streaming plane on phase 4's weighted DBG graph (nothing
+     regenerated; phase 4's backends freed): a ``StreamService``
+     (``STREAM_CONFIG``: the fused PageRank push, DBG regrouped every
+     batch, a compaction threshold that only the final batch crosses) whose
+     ``_on_apply`` hook also feeds an unfused ``IncrementalPageRank`` and a
+     fused ``IncrementalSSSP`` from the main path's root, beside the
+     service's own unfused SSSP; the reference churn benchmark's traffic
+     (``ChurnStream``: 75% inserts drawn by degree + 1, weights in [1, 16),
+     deletions uniform over the alive edges), ``STREAM_BATCHES`` batches of
+     each of ``STREAM_SIZES`` edges, then one batch of
+     ``STREAM_INSERT_ONLY`` inserts alone, whose SSSP refreshes must relax
+     from the new edges without a full recompute.  After every batch:
+     fused SSSP bitwise equal to the unfused, fused PageRank within 1e-8 of
+     the unfused (at 2^21 vertices; held in units of 1/V), and K5's
+     launches in each fused refresh equal to its passes x the launches per
+     pass over the tiles it rode (the base classes with their alive
+     planes, and the ``coo_tiles`` delta tile); after the first series and
+     after the insert-only batch the fused PageRank within 1e-5 of
+     ``apps.pagerank`` on ``flat`` of the snapshot, and after the last the
+     fused SSSP bitwise equal to ``apps.sssp``.  Per batch it prints the
+     deployment's ingest (less the comparison consumers' folds, printed
+     apart), apply, folds, regroup, tile (alive refresh, ``coo_tiles``) and
+     refresh seconds and iterations, per series their median [min-max];
+     the cold solves, the ``DeltaGraph``, the compaction and the resync;
+     one fused and one unfused push on the device alone (each twice
+     bitwise, against each other in the sum band) beside the fused push's
+     bound over the real lanes; one ``locality()``; the phase's peak
+     device memory; and a ``stream`` JSON line;
+ 11. (the graph state freed) K2 vs its plain version on the card, bitwise:
      ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
      widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
      Zipf ids, and at a T that is not a multiple of 32; all-hot and
      all-cold batches, int64 and strided ids too;
- 11. the LM serving path at reduced size, card against CPU: reduced Yi-9B
+ 12. the LM serving path at reduced size, card against CPU: reduced Yi-9B
      (GQA) and reduced OLMo-1B, same weights, ``generate`` (batch 2, prompt
      8, 8 new): logits of every step within rtol 1e-4, atol 1e-5, tokens
      equal;
- 12. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
+ 13. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
      float32, random weights from a seeded generator on the card) serves 4
      requests of 32 Zipf prompt tokens (DBG vocabulary) + 32 greedy tokens;
      K2 must launch once per ``decode_step`` (64), every token lies in the
      vocabulary, the last logits are finite, and the split gather of the
      served ids equals its plain version bitwise;
- 13. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
+ 14. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
      the plain version, ``F.embedding`` over the joined table and the
      bound, from an idle device and on the device alone; the wrapper's host
      time per call; and, under ``torch.profiler``, the device operations
      of one ``embed_lookup`` at a prefill and at a decode step (1 each) and
      of one hist_bin (1) and one dbg_bin call (2) at phase 8's call, read
-     together here: in runs that first profiled in phase 8, phase 13's
+     together here: in runs that first profiled in phase 8, phase 14's
      profile of the prefill lookup held no device event.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
 device and ``device_ms`` on the device alone, its library call's
 ``library_ms`` and ``library_device_ms``, its worst error against the plain
 version ``max_abs_err``, the TPU kernel it replaces ``replaces``, its
-launches on each path ``launches_by_path``; K1's ``ms`` and ``bound_ms`` are
+launches on each path ``launches_by_path``, ``stream`` among them; K5's
+``stream_push`` times one push over the stream's tiles, its ``bound_ms``
+over the real lanes and ``padded_bound_ms`` over the planes; K1's ``ms`` and
+``bound_ms`` are
 its degree walk's, ``padded_ms`` and ``padded_bound_ms`` its every-lane
 path's; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG,
 ``device_ops_per_call`` counts its device operations, and ``two_ops_ms`` and
@@ -154,6 +185,25 @@ EVAL_REPS = 5              # timed warm runs per app (median), after one warm-up
 EVAL_ORDERINGS = ("original", "sort", "hubsort", "hubcluster", "dbg",
                   "gorder_lite", "random_vertex")
 EVAL_TRACED = "sort"       # phase 9 traces this ordering's build and a PageRank
+# phase 10: the reference churn benchmark's traffic (benchmarks/stream_churn.py)
+# with its 256-edge series left out: on the H100's host that series took
+# ~60 s of a phase that ran 448 s (PERF.md, the stream cell), and the script
+# must stay inside its time limit
+STREAM_SIZES = (1024, 4096)       # edges per batch, one series each
+STREAM_BATCHES = 10               # batches per series, all on one service
+STREAM_INSERT_FRAC = 0.75
+# the incremental_dbg policy (regroup every batch) with the fused PageRank
+# push; the threshold puts exactly the final batch over it: 47,104 edges of
+# churn before it, 51,200 with it, against 0.0012 x 41,943,040 = 50,331.6
+STREAM_CONFIG = dict(pr_fused_push=True, regroup_every=1,
+                     compact_threshold=0.0012)
+# then one batch of inserts alone: the incremental SSSP relaxation
+STREAM_INSERT_ONLY = 4096
+STREAM_KEYS = ("ingest_s", "edges_per_s", "apply_s", "folds_s", "regroup_s",
+               "moved", "extra_folds_s", "ingest_total_s", "tiles_s",
+               "alive_s", "coo_s", "pr_fused_s", "pr_fused_iters",
+               "pr_flat_s", "pr_flat_iters", "sssp_fused_s", "sssp_flat_s",
+               "sssp_iters", "pr_gap", "pr_gap_v")
 
 
 def log(msg: str) -> None:
@@ -1229,13 +1279,13 @@ def _mapped_back(app, out, m):
     return y[m], it
 
 
-def _k5_launches_per_pass(ga):
-    """K5 launches of one ``fused_edge_map`` over ``ga``'s tiles: two for a
-    class wider than 1,024 lanes (pieces, then the fold), else one."""
+def _k5_launches_per_pass(tiles):
+    """K5 launches of one ``fused_edge_map`` pass over ``tiles``: two for a
+    tile wider than 1,024 lanes (pieces, then the fold), else one."""
     from repro_torch.kernels._wrap import lanes_per_row
 
     return sum(2 if lanes_per_row(t.idx.shape[1]) == 256 else 1
-               for t in ga.in_tiles)
+               for t in tiles)
 
 
 def _cache_model(graph):
@@ -1365,7 +1415,7 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
             passes = {d: int(s.get(f"edge_map.passes.ell.{d}", 0))
                       for d in ("pull", "push", "out_sum")}
             expect = ((passes["pull"] + passes["push"])
-                      * _k5_launches_per_pass(ga))
+                      * _k5_launches_per_pass(ga.in_tiles))
             if launches == 0 or launches != expect:
                 raise AssertionError(
                     f"{ordering} {app}: {launches} K5 launches, the counters' "
@@ -1456,6 +1506,491 @@ def _traced_pagerank(tr, fn, ga, want):
 
 
 # ---------------------------------------------------------------- phase 10
+class ChurnStream:
+    """The reference churn benchmark's update stream
+    (``benchmarks/stream_churn.py``, ``ChurnStream``): inserts draw their
+    endpoints preferentially by degree + 1, deletions uniformly over the
+    current alive edges; ``weights`` draws insert weights uniform in
+    [1, 16) from the same generator, as ``generators.with_weights`` does."""
+
+    def __init__(self, g, insert_frac: float = 0.75, seed: int = 0):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed)
+        self.insert_frac = insert_frac
+        out_p = (g.out_degrees() + 1.0)
+        in_p = (g.in_degrees() + 1.0)
+        self._out_cum = np.cumsum(out_p / out_p.sum())
+        self._in_cum = np.cumsum(in_p / in_p.sum())
+
+    def _pick(self, cum, k):
+        import numpy as np
+
+        # clip: float rounding can leave cum[-1] a hair under 1.0
+        idx = np.searchsorted(cum, self.rng.random(k))
+        return np.minimum(idx, cum.shape[0] - 1).astype(np.int64)
+
+    def next_batch(self, dg, batch_size: int):
+        n_add = int(round(batch_size * self.insert_frac))
+        n_del = batch_size - n_add
+        add_src = self._pick(self._out_cum, n_add)
+        add_dst = self._pick(self._in_cum, n_add)
+        es, ed, _ = dg.alive_edges()
+        idx = self.rng.choice(es.shape[0], size=min(n_del, es.shape[0]),
+                              replace=False)
+        return add_src, add_dst, es[idx], ed[idx]
+
+    def inserts(self, n: int):
+        """``n`` inserts alone, endpoints drawn as ``next_batch`` draws
+        them."""
+        return self._pick(self._out_cum, n), self._pick(self._in_cum, n)
+
+    def weights(self, n: int):
+        import numpy as np
+
+        return self.rng.uniform(1.0, 16.0, size=n).astype(np.float32)
+
+
+class _Timed:
+    """Wraps ``name`` of ``module`` for the phase, for the functions that
+    open no span of their own: each call synced at its end, its seconds
+    (and, with ``keep``, its result) recorded.  Leaving the block raises if
+    no call came through the wrapper (the call site moved)."""
+
+    def __init__(self, module, name, keep=False):
+        self.module, self.name, self.keep = module, name, keep
+        self.fn = getattr(module, name)
+        self.seconds, self.results, self.calls = [], [], 0
+
+    def __call__(self, *args, **kw):
+        t = time.perf_counter()
+        out = self.fn(*args, **kw)
+        _sync()
+        self.seconds.append(time.perf_counter() - t)
+        self.calls += 1
+        if self.keep:
+            self.results.append(out)
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        setattr(self.module, self.name, self.fn)
+        if exc_type is None and not self.calls:
+            raise AssertionError(f"{self.module.__name__}.{self.name} was "
+                                 "never called through its timer")
+
+    def take(self):
+        """Seconds since the last ``take`` (summed), and the results."""
+        s, r = sum(self.seconds), self.results
+        self.seconds, self.results = [], []
+        return s, r
+
+
+def _median_span(xs):
+    import statistics
+
+    return dict(median=statistics.median(xs), min=min(xs), max=max(xs))
+
+
+def _span_seconds(events):
+    """Seconds of each complete span among trace ``events``, summed by name."""
+    out = {}
+    for e in events:
+        if e["ph"] == "X":
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e6
+    return out
+
+
+def _stream_service(gw, root, device):
+    """The stream service of phase 10 (``STREAM_CONFIG``) on ``gw``, with
+    the reference's ``_on_apply`` hook feeding two more consumers on its
+    ``DeltaGraph``: an unfused ``IncrementalPageRank`` and a fused
+    ``IncrementalSSSP`` from ``root``.  Their folds are not the
+    deployment's work: ``on_apply_s`` holds the last batch's seconds of
+    them.  Returns the service and the seconds of its ``DeltaGraph`` and
+    of the rest of its construction."""
+    from repro_torch.stream import (IncrementalPageRank, IncrementalSSSP,
+                                    StreamConfig, StreamService)
+    from repro_torch.stream import service as service_mod
+
+    class Service(StreamService):
+        def __init__(self, g, config):
+            super().__init__(g, config, device=device)
+            self.pr_flat = IncrementalPageRank(
+                self.dg, damping=config.damping, epsilon=config.pr_epsilon,
+                max_iters=config.pr_max_iters, device=device)
+            self.sssp_fused = IncrementalSSSP(self.dg, root,
+                                              use_fused_push=True,
+                                              device=device)
+            self.on_apply_s = 0.0
+
+        def _on_apply(self, result):
+            t = time.perf_counter()
+            self.pr_flat.ingest(result)
+            self.sssp_fused.ingest(result)
+            self.on_apply_s = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with _Timed(service_mod, "DeltaGraph") as made:
+        svc = Service(gw, StreamConfig(**STREAM_CONFIG))
+    total = time.perf_counter() - t0
+    return svc, made.seconds[0], total - made.seconds[0]
+
+
+def stream_plane(gw, root, device):
+    """The streaming plane at the main path's size: phase 4's weighted DBG
+    graph under ``STREAM_SIZES`` x ``STREAM_BATCHES`` batches of the
+    reference churn benchmark's traffic, then one batch of
+    ``STREAM_INSERT_ONLY`` inserts, all on one service, the fused PageRank
+    and SSSP on K5 over the base+delta tiles beside the unfused
+    edge-parallel ones; checked and timed per batch.  Apply, regroup,
+    compaction and the service's own folds are read from its spans.
+    Returns the ``stream`` JSON record and K5's launches over the drive."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import apps
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.stream import incremental
+
+    v = gw.num_vertices
+    # fused vs unfused PageRank: the reference's CPU band of 1e-8 at 2^21
+    # vertices, held in units of the mean rank 1/V so that a smaller
+    # rehearsal keeps its meaning
+    pr_band = 1e-8 * 2**21 / v
+    out = dict(vertices=v, edges=gw.num_edges, config=STREAM_CONFIG,
+               root=root, sizes=list(STREAM_SIZES), batches=STREAM_BATCHES,
+               insert_only=STREAM_INSERT_ONLY, pr_band=pr_band)
+    timers = [_Timed(incremental, "stream_push_tiles", keep=True),
+              _Timed(incremental, "refresh_alive"),
+              _Timed(incremental, "coo_tiles")]
+    push_tiles, alive_t, coo_t = timers
+
+    def tile_parts(rec):
+        """The alive refresh's and ``coo_tiles``' seconds since the last
+        call, added into ``rec``."""
+        for key, tm in (("alive_s", alive_t), ("coo_s", coo_t)):
+            rec[key] = rec.get(key, 0.0) + tm.take()[0]
+
+    def refresh(fn, passes, fused):
+        """One consumer's refresh ``fn()``: its result, seconds, K5
+        launches and ``stream_push_tiles`` seconds; a fused refresh's
+        launches must equal ``passes()`` x the launches per pass over the
+        tiles it rode, an unfused one launches none."""
+        n0 = _ell_launches()
+        t = time.perf_counter()
+        res = fn()
+        _sync()
+        dt = time.perf_counter() - t
+        launches = _ell_launches() - n0
+        tiles_s, tiles = push_tiles.take()
+        if fused:
+            want = sum(passes() * _k5_launches_per_pass(b + d)
+                       for b, d in tiles)
+            if len(tiles) > 1 or launches != want:
+                raise AssertionError(f"fused refresh: {launches} K5 launches "
+                                     f"for {passes()} passes over "
+                                     f"{len(tiles)} tile sets (want {want})")
+        elif launches or tiles:
+            raise AssertionError(f"unfused refresh launched K5 {launches}x")
+        return res, dt, launches, tiles_s
+
+    def pr_gap(label):
+        """max|fused - unfused PageRank|, held to ``pr_band``."""
+        gap = float(np.abs(svc.pr.rank - svc.pr_flat.rank).max())
+        if not gap <= pr_band:
+            raise AssertionError(f"{label}: fused PageRank {gap} from unfused "
+                                 f"(band {pr_band:.3g})")
+        return gap
+
+    def full_check(label, last=False):
+        """PageRank (and after the last batch SSSP) recomputed on ``flat``
+        of the current snapshot, against the fused consumers."""
+        t = time.perf_counter()
+        snap = svc.snapshot()
+        ga = apps.to_arrays(snap, backend="flat", device=device)
+        full, it = apps.pagerank(ga, tol=1e-10, max_iters=256)
+        full = full.cpu().numpy()
+        gap = float(np.abs(svc.pr.rank - full).max())
+        if not gap <= 1e-5:
+            raise AssertionError(f"{label}: fused PageRank {gap} from a full "
+                                 "recompute (band 1e-5)")
+        rec = dict(pagerank_gap=gap, pagerank_iters=int(it))
+        if last:
+            d, _ = apps.sssp(ga, root)
+            if not np.array_equal(svc.sssp_fused.dist, d.cpu().numpy()):
+                raise AssertionError(f"{label}: fused SSSP differs from a "
+                                     "full recompute (must be bitwise)")
+            rec["sssp_bitwise"] = True
+        del ga, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t
+        log(f"  {label}: fused PageRank within {gap:.3g} of a full recompute "
+            f"on flat ({it} iterations, tol 1e-10)"
+            + ("; fused SSSP bitwise equal to apps.sssp" if last else "")
+            + f" ({rec['seconds']:.1f} s)")
+        return rec
+
+    def batch(size, draw_s, a_s, a_d, a_w, d_s=None, d_d=None):
+        """One ingest and every consumer's refresh, checked; its record.
+        ``ingest_s`` is the deployment's: ``IngestStats.total_seconds``
+        less the comparison consumers' folds (``extra_folds_s``)."""
+        n0 = len(tr.events)
+        st = svc.ingest(add_src=a_s, add_dst=a_d, add_w=a_w,
+                        del_src=d_s, del_dst=d_d)
+        spans = _span_seconds(tr.events[n0:])
+        ingest_s = st.total_seconds - svc.on_apply_s
+        rec = dict(size=size, batch=st.batch_index, draw_s=draw_s,
+                   apply_s=st.apply_seconds, folds_s=spans["stream.refresh"],
+                   regroup_s=st.regroup_seconds,
+                   moved=st.moved_vertices, compacted=st.compacted,
+                   ingest_s=ingest_s,
+                   edges_per_s=(st.inserted + st.deleted) / ingest_s,
+                   extra_folds_s=svc.on_apply_s,
+                   ingest_total_s=st.total_seconds)
+        if st.compacted:
+            # the service resynced its own PageRank; the unfused consumer
+            # sheds its noise the same way
+            svc.pr_flat.resync()
+            rec["compact_s"] = spans["stream.compact"]
+        resync = svc.pr._needs_full_residual
+        (_, rec["pr_fused_s"], rec["pr_fused_launches"],
+         pr_tiles_s) = refresh(
+            svc.pagerank, lambda: svc.pr.last_iters + resync, True)
+        rec["pr_fused_iters"] = svc.pr.last_iters
+        _, rec["pr_flat_s"], _, _ = refresh(svc.pr_flat.query, None, False)
+        rec["pr_flat_iters"] = svc.pr_flat.last_iters
+        d_u, rec["sssp_flat_s"], _, _ = refresh(lambda: svc.sssp(root), None,
+                                                False)
+        (d_f, rec["sssp_fused_s"], rec["sssp_fused_launches"],
+         sssp_tiles_s) = refresh(svc.sssp_fused.query,
+                                 lambda: svc.sssp_fused.last_iters, True)
+        rec["tiles_s"] = pr_tiles_s + sssp_tiles_s
+        rec["sssp_iters"] = svc.sssp_fused.last_iters
+        rec["sssp_full"] = svc.sssp_fused.full_recomputes
+        tile_parts(rec)
+        if not np.array_equal(d_u, d_f):
+            raise AssertionError(f"batch {st.batch_index}: fused SSSP "
+                                 "differs from unfused (bitwise)")
+        if svc._sssp[root].full_recomputes != rec["sssp_full"]:
+            raise AssertionError("SSSP consumers recomputed apart")
+        gap = pr_gap(f"batch {st.batch_index}")
+        rec.update(pr_gap=gap, pr_gap_v=gap * v)
+        log(f"    batch {st.batch_index} ({size} edges): ingest "
+            f"{rec['ingest_s']:.3f} s (apply {rec['apply_s']:.3f}, folds "
+            f"{rec['folds_s']:.3f}, regroup {rec['regroup_s']:.3f}, "
+            f"{rec['moved']} moved"
+            + (f", compaction {rec['compact_s']:.2f}" if st.compacted else "")
+            + f"; the comparison consumers' folds {rec['extra_folds_s']:.3f} "
+            f"apart); tiles {rec['tiles_s']:.3f} s (alive "
+            f"{rec['alive_s']:.3f}, coo {rec['coo_s']:.4f}); "
+            f"PageRank fused {rec['pr_fused_s']:.3f} s "
+            f"({rec['pr_fused_iters']} pushes"
+            + (" + the resync pull" if resync else "")
+            + f", {rec['pr_fused_launches']} K5 launches), unfused "
+            f"{rec['pr_flat_s']:.3f} s ({rec['pr_flat_iters']}), "
+            f"max|d| {gap:.3g} (x V {gap * v:.3g}; band {pr_band:.3g}); SSSP "
+            f"fused "
+            f"{rec['sssp_fused_s']:.3f} s ({rec['sssp_iters']} "
+            f"iterations, {rec['sssp_fused_launches']} launches), "
+            f"unfused {rec['sssp_flat_s']:.3f} s, bitwise equal; "
+            f"full SSSP recomputes so far {rec['sssp_full']}")
+        return rec
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    svc, dg_s, rest_s = _stream_service(gw, root, device)
+    out.update(delta_graph_s=dg_s, service_rest_s=rest_s)
+    log(f"  service: DeltaGraph {dg_s:.1f} s, IncrementalDBG and consumers "
+        f"{rest_s:.1f} s; StreamConfig {STREAM_CONFIG}")
+    stream = ChurnStream(gw, insert_frac=STREAM_INSERT_FRAC, seed=3)
+    for tm in timers:
+        tm.__enter__()
+    tr = obs_trace.enable()
+    _reset_launches()
+    try:
+        # the cold solves (the fused PageRank's first refresh is the resync
+        # pull, then the pushes)
+        cold = {}
+        (_, cold["pr_fused_s"], cold["pr_fused_launches"],
+         cold["pr_fused_tiles_s"]) = refresh(
+            svc.pagerank, lambda: svc.pr.last_iters + 1, True)
+        cold["pr_fused_iters"] = svc.pr.last_iters
+        _, cold["pr_flat_s"], _, _ = refresh(svc.pr_flat.query, None, False)
+        cold["pr_flat_iters"] = svc.pr_flat.last_iters
+        d_u, cold["sssp_flat_s"], _, _ = refresh(lambda: svc.sssp(root),
+                                                 None, False)
+        d_f, cold["sssp_fused_s"], _, _ = refresh(
+            svc.sssp_fused.query, lambda: svc.sssp_fused.last_iters, True)
+        cold["sssp_iters"] = svc.sssp_fused.last_iters
+        tile_parts(cold)
+        if not np.array_equal(d_u, d_f):
+            raise AssertionError("cold SSSP: fused differs from unfused")
+        gap = pr_gap("cold PageRank")
+        cold["pr_fused_vs_flat"] = gap
+        out["cold"] = cold
+        log(f"  cold solves: PageRank fused {cold['pr_fused_s']:.3f} s "
+            f"({cold['pr_fused_iters']} pushes + the resync pull, "
+            f"{cold['pr_fused_launches']} K5 launches), unfused "
+            f"{cold['pr_flat_s']:.3f} s ({cold['pr_flat_iters']} pushes), "
+            f"max|d| {gap:.3g} (band {pr_band:.3g}); SSSP unfused "
+            f"{cold['sssp_flat_s']:.3f} s, "
+            f"fused {cold['sssp_fused_s']:.3f} s ({cold['sssp_iters']} "
+            f"iterations), bitwise equal; the tiles built in "
+            f"{cold['pr_fused_tiles_s']:.2f} s")
+
+        records, checks, push_device = [], [], None
+        for size in STREAM_SIZES:
+            for i in range(STREAM_BATCHES):
+                t = time.perf_counter()
+                a_s, a_d, d_s, d_d = stream.next_batch(svc.dg, size)
+                a_w = stream.weights(a_s.shape[0])
+                records.append(batch(size, time.perf_counter() - t,
+                                     a_s, a_d, a_w, d_s, d_d))
+                if size == STREAM_SIZES[-1] and i == STREAM_BATCHES - 2:
+                    # before the compacting batch, while the delta is full;
+                    # its launches and tiles are not the drive's
+                    counts = _read_launches()
+                    push_device = _stream_push_device(svc.dg, device)
+                    for name, (fn, _, _) in _wrappers().items():
+                        fn.launches = counts[name]
+                    for tm in timers:
+                        tm.take()
+            if size != STREAM_SIZES[-1]:
+                checks.append(full_check(f"after the {size}-edge series"))
+        compacted = [r["batch"] for r in records if r["compacted"]]
+        if compacted != [records[-1]["batch"]] or svc.compactions != 1:
+            raise AssertionError(f"compactions at batches {compacted}: only "
+                                 "the final batch must compact")
+        # every churn batch deletes a tight edge, so each SSSP refresh above
+        # is a full recompute; with no deletion both consumers relax from
+        # the new edges alone
+        t = time.perf_counter()
+        a_s, a_d = stream.inserts(STREAM_INSERT_ONLY)
+        a_w = stream.weights(a_s.shape[0])
+        full0 = svc.sssp_fused.full_recomputes
+        ins = batch(STREAM_INSERT_ONLY, time.perf_counter() - t, a_s, a_d,
+                    a_w)
+        if ins["sssp_full"] != full0 or not ins["sssp_iters"]:
+            raise AssertionError(
+                f"insert-only batch: {ins['sssp_full'] - full0} full SSSP "
+                f"recomputes, {ins['sssp_iters']} relaxation iterations "
+                "(want 0 and at least 1)")
+        checks.append(full_check(f"after the {STREAM_SIZES[-1]}-edge series "
+                                 "and the insert-only batch", last=True))
+        stream_launches = _read_launches()
+    finally:
+        obs_trace.disable()
+        for tm in timers:
+            tm.__exit__(sys.exc_info()[0])
+    t = time.perf_counter()
+    loc = svc.locality()
+    loc_s = time.perf_counter() - t
+    out.update(records=records, insert_only_batch=ins, checks=checks,
+               push_device=push_device, locality=loc, locality_s=loc_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=stream_launches)
+    out["series"] = {}
+    for size in STREAM_SIZES:
+        rs = [r for r in records if r["size"] == size]
+        out["series"][size] = ser = {k: _median_span([r[k] for r in rs])
+                                     for k in STREAM_KEYS}
+        log(f"  {size}-edge series, median [min-max] of {len(rs)} batches: "
+            + "; ".join(f"{k} {ser[k]['median']:.4g} [{ser[k]['min']:.4g}-"
+                        f"{ser[k]['max']:.4g}]" for k in STREAM_KEYS))
+    last = records[-1]
+    log(f"  compaction (batch {last['batch']}): {last['compact_s']:.2f} s; "
+        f"the resync refresh {last['pr_fused_s']:.2f} s (tiles rebuilt in "
+        f"{last['tiles_s']:.2f} s); insert-only batch: SSSP relaxed in "
+        f"{ins['sssp_iters']} iterations, fused {ins['sssp_fused_s']:.3f} s, "
+        f"unfused {ins['sssp_flat_s']:.3f} s, no full recompute; locality() "
+        f"{loc_s:.1f} s: MPKA "
+        + "; ".join(f"{k} " + ", ".join(f"{lv} {x:.2f}" for lv, x in m.items())
+                    for k, m in loc.items()))
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _stream_push_device(dg, device):
+    """One fused push (base + delta, sum, ``init``) and one unfused push of
+    the same function on the device alone, each checked twice bitwise and
+    against each other in the sum band, beside the fused push's bound (the
+    real lanes' bytes at ``HBM_BYTES_PER_S``, or its operations if more;
+    ``padded_bound_ms`` prices ``fused_edge_map_bytes``' padded planes).
+    ``x`` is a PageRank contribution (``rand / out-degree``), ``init`` of
+    the same order, so every row's value stands above the band."""
+    import torch
+
+    from repro_torch.kernels.edge_map import fused_edge_map_bytes
+    from repro_torch.stream import incremental
+
+    base, delta = incremental.stream_push_tiles(dg, device=device)
+    sa = incremental.stream_arrays(dg, device)
+    v = dg.num_vertices
+    gen = torch.Generator(device=device).manual_seed(4)
+    out_deg = torch.from_numpy(dg.out_deg).to(device).clamp(min=1)
+    x = torch.rand(v, generator=gen, device=device) / out_deg
+    init = torch.rand(v, generator=gen, device=device)
+
+    def fused():
+        return incremental.edge_map_push_stream_fused(base, delta, x, v,
+                                                      init=init)
+
+    def flat():
+        return incremental.edge_map_push_stream(sa, x, init=init)
+
+    n0 = _ell_launches()
+    a = fused()
+    launches = _ell_launches() - n0
+    b, c, d = fused(), flat(), flat()
+    if not (torch.equal(a, b) and torch.equal(c, d)):
+        raise AssertionError("a stream push differs between two calls")
+    err = _assert_close(a, c, "sum", "fused vs unfused stream push")
+    band = 2e-6 * (1.0 + float(c.abs().max()))
+    padded = fused_edge_map_bytes(base, v, push_init=True, extra_tiles=delta)
+    edges = sum(int(t.deg.sum()) for t in base + delta)
+    # what K5 must move at the least: the real lanes' ids and alive bytes,
+    # deg, init and y per row, x once
+    real = v * 4 + sum(int(t.deg.sum()) * (t.idx.element_size() + 1)
+                       + t.idx.shape[0] * 12 for t in base + delta)
+    bound_bytes_ms = real / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = edges / FP32_OPS_PER_S * 1e3
+    rec = dict(
+        launches=launches, delta_rows=int(delta[0].num_rows) if delta else 0,
+        delta_shape=tuple(delta[0].idx.shape) if delta else None,
+        delta_edges=int(delta[0].deg.sum()) if delta else 0,
+        base_classes=len(base), max_abs_err=err, band=band,
+        min_abs_y=float(c.abs().min()), max_abs_y=float(c.abs().max()),
+        fused_device_ms=_events_ms(fused, REPS, device_only=True),
+        flat_device_ms=_events_ms(flat, REPS, device_only=True),
+        fused_ms=_events_ms(fused, REPS), flat_ms=_events_ms(flat, REPS),
+        bound_ms=max(bound_bytes_ms, bound_ops_ms),
+        bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        bound_bytes=real, padded_bound_ms=padded / HBM_BYTES_PER_S * 1e3,
+        padded_bytes=padded)
+    log(f"  one push on the device alone (base {len(base)} classes with "
+        f"alive planes + a delta tile {rec['delta_shape']}, "
+        f"{rec['delta_edges']} lanes; {launches} K5 launches): fused "
+        f"{rec['fused_device_ms']:.4f} ms (idle device "
+        f"{rec['fused_ms']:.4f}), unfused {rec['flat_device_ms']:.4f} ms "
+        f"(idle {rec['flat_ms']:.4f}), bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}: {real} B over the real lanes, {edges} edges; "
+        f"{rec['padded_bound_ms']:.4f} ms over the padded planes, {padded} "
+        f"B); both twice bitwise, max |err| {err:.3g} against a band of "
+        f"{band:.3g} (|y| {rec['min_abs_y']:.3g} to {rec['max_abs_y']:.3g})")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 11
 def _zipf_tokens(vocab_size, batch, seq_len):
     """(batch, seq_len) int32 ids of the port's ``ZipfPipeline`` (seed 0),
     remapped through DBG over the pipeline's own token frequencies, and the
@@ -1525,7 +2060,7 @@ def k2_grid(device):
     return cases, err
 
 
-# ---------------------------------------------------------------- phase 11
+# ---------------------------------------------------------------- phase 12
 def lm_parity(device):
     """Reduced Yi-9B (GQA) and OLMo-1B, the same weights on the CPU and the
     card: greedy tokens equal, every step's logits within rtol 1e-4, atol
@@ -1560,10 +2095,10 @@ def lm_parity(device):
     return worst
 
 
-# ---------------------------------------------------------------- phase 12
+# ---------------------------------------------------------------- phase 13
 def lm_serve(device):
     """Yi-9B at full width serves LM_BATCH requests through ``generate``.
-    Returns the model and what phase 13 and the ``kernels`` line need."""
+    Returns the model and what phase 14 and the ``kernels`` line need."""
     import statistics
 
     import torch
@@ -1691,7 +2226,7 @@ def profile_decode_step(model, tokens):
                 top=[(name[:90], n, ms) for name, (n, ms) in top[:8]])
 
 
-# ---------------------------------------------------------------- phase 13
+# ---------------------------------------------------------------- phase 14
 def _host_us(fn, n=1000):
     """Host microseconds per ``fn()`` over ``n`` calls issued with no sync
     between them: what the caller's thread spends to issue one call."""
@@ -2012,7 +2547,7 @@ def main() -> int:
         f"{hb['host_mapping_ms']:.2f} ms ({time.perf_counter() - t0:.1f} s)")
 
     pk_err = pk["max_err"]
-    deg_t, b_t = pk["deg_t"], pk["b_t"]  # phase 13 profiles dbg_bin on them
+    deg_t, b_t = pk["deg_t"], pk["b_t"]  # phase 14 profiles dbg_bin on them
     del pk
     gc.collect()
     torch.cuda.empty_cache()
@@ -2025,8 +2560,21 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     log(json.dumps({"paper_eval": evals, "tables": tables, "card": smi}))
 
-    # 10. K2 vs plain, once the graph state has left the card
-    del ells, small_tiles, small, g, g_dbg, gw_dbg, res
+    # 10. the streaming plane on phase 4's weighted DBG graph; the launch
+    # counts are read from zero inside
+    del ells
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = stream_plane(gw_dbg, 0, dev)  # the main path's SSSP root
+    stream_path = st.pop("launches")
+    if stream_path["ell_edge_map"] == 0:
+        raise AssertionError("stream: K5 was never launched")
+    log(f"streaming plane: launches {stream_path}; peak device memory "
+        f"{st['peak_gib']:.2f} GiB ({st['seconds']:.1f} s)")
+    log(json.dumps({"stream": st, "card": smi}))
+
+    # 11. K2 vs plain, once the graph state has left the card
+    del small_tiles, small, g, g_dbg, gw_dbg, res
     gc.collect()
     torch.cuda.empty_cache()
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2039,13 +2587,13 @@ def main() -> int:
         f"bitwise equal, max |err| {e9} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 11. the LM serving path at reduced size, card against CPU
+    # 12. the LM serving path at reduced size, card against CPU
     t0 = time.perf_counter()
     used = lm_parity(dev)
     log(f"LM parity, card vs CPU: worst logit gap {used:.3g} of the band "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 12. the LM serving path at full width; counts read from zero inside
+    # 13. the LM serving path at full width; counts read from zero inside
     t0 = time.perf_counter()
     model, served, lm = lm_serve(dev)
     prof = profile_decode_step(model, served)
@@ -2058,7 +2606,7 @@ def main() -> int:
     for kname, n, ms in prof["top"]:
         log(f"    {ms:9.3f} ms  {n:4d} x  {kname}")
 
-    # 13. K2's times
+    # 14. K2's times
     t0 = time.perf_counter()
     k2 = time_k2(model, served, REPS)
     for label, m in k2.items():
@@ -2076,7 +2624,7 @@ def main() -> int:
     # the device operations of what the serving loop passes to embed_lookup
     # (a prefill step's strided column of the prompt, a decode step's (B, 1)
     # greedy pick) and of hist_bin and dbg_bin at phase 8's call: all here,
-    # after phase 12's session, as this process's profiler reads reliably
+    # after phase 13's session, as this process's profiler reads reliably
     prefill, decode = served[:, 1:2], served[:, -1:].contiguous()
     with torch.no_grad():
         ops = _device_ops({
@@ -2119,6 +2667,7 @@ def main() -> int:
     for kname, (_, source, replaces) in _wrappers().items():
         m = timed[kname]
         by_path = {"ell": ell_path[kname], "packed": packed[kname],
+                   "stream": stream_path[kname],
                    "lm_serve": lm["launches"][kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
@@ -2140,6 +2689,11 @@ def main() -> int:
                         "dbg_bin_library_device_ms",
                         "dbg_bin_device_ops_per_call"):
                 entry[key] = m[key]
+        if kname == "ell_edge_map":  # one stream push, base + delta
+            entry["stream_push"] = {k: st["push_device"][k] for k in (
+                "fused_ms", "fused_device_ms", "flat_ms", "flat_device_ms",
+                "bound_ms", "bound_by", "padded_bound_ms", "launches",
+                "max_abs_err", "band")}
         if "padded_ms" in m:  # K1 without the degrees: every lane
             entry["padded_ms"] = m["padded_ms"]
             entry["padded_bound_ms"] = m["padded_bound_ms"]

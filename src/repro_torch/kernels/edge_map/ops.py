@@ -9,8 +9,14 @@ reference's exactly.
 ``fused_edge_map`` is the device driver: one K5 launch per tile class, then
 an O(V) combine of per-class row results back into vertex space.  Rows are
 grouped by degree, so every vertex appears in exactly one class and the
-combine is a plain set-scatter (``index_copy_``, exact).  Nothing here
+combine is a plain set-scatter (``index_copy_``, exact).  ``extra_tiles``
+(the stream's delta segment from ``coo_tiles``, whose destinations
+duplicate base rows) fold in with the reduction instead.  Nothing here
 materializes an O(E) edge-parallel intermediate.
+
+``refresh_alive`` and ``coo_tiles`` are the stream's packers: both build
+their planes on the host exactly as the reference does, then put them on
+the device.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from .edge_map import REDUCE_IDENTITY, edge_map_tile_bytes, ell_edge_map
 __all__ = [
     "EllTileGroup",
     "ell_tiles",
+    "coo_tiles",
+    "refresh_alive",
     "fused_edge_map",
     "fused_edge_map_bytes",
 ]
@@ -113,6 +121,33 @@ def _fill_planes(adj: csr_mod.CSR, rows: np.ndarray, degs: np.ndarray,
     return idx, w, alive
 
 
+def refresh_alive(
+    adj: csr_mod.CSR,
+    tiles: Tuple[EllTileGroup, ...],
+    alive_edges: Optional[np.ndarray],
+) -> Tuple[EllTileGroup, ...]:
+    """Rebuild ONLY the alive planes of existing tiles (idx, w, deg and the
+    segment list untouched), each on its tile's device.
+
+    A deletion batch re-scatters one int8 plane per class on the host and
+    uploads it, instead of repacking the base (no degree binning, no idx/w
+    fills).  ``alive_edges`` is a per-edge bool in ``adj``'s storage order;
+    ``None`` drops the planes (everything alive again)."""
+    out = []
+    for t in tiles:
+        if alive_edges is None:
+            out.append(t._replace(alive=None))
+            continue
+        rows = t.rows.cpu().numpy()
+        degs = t.deg.cpu().numpy()[: rows.shape[0]].astype(np.int64)
+        row_rep, col = _slot_coords(degs)
+        pos = csr_mod.ragged_offsets(adj.indptr[rows], degs)
+        plane = _scatter_plane(t.idx.shape[0], t.idx.shape[1], row_rep, col,
+                               alive_edges[pos], np.int8)
+        out.append(t._replace(alive=torch.from_numpy(plane).to(t.idx.device)))
+    return tuple(out)
+
+
 def ell_tiles(
     adj: csr_mod.CSR,
     boundaries: Sequence[int],
@@ -165,10 +200,60 @@ def ell_tiles(
     return tuple(out)
 
 
+def coo_tiles(
+    src: np.ndarray,
+    dst: np.ndarray,
+    w: Optional[np.ndarray] = None,
+    alive: Optional[np.ndarray] = None,
+    *,
+    row_tile: int = 64,
+    width_tile: int = 128,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tuple[EllTileGroup, ...]:
+    """Group a small COO edge list by destination into ONE ELL tile group
+    on ``device`` (``None``: the CUDA card, raising without one).
+
+    The stream delta buffer's fused path: destinations become rows (width =
+    max multiplicity, padded), so the cold segment rides the same K5 kernel
+    as the base tiles, as ``fused_edge_map``'s ``extra_tiles``.  Its
+    ``rows`` are the ``np.unique`` destinations, so the combine's
+    ``scatter_reduce`` meets each row once: its result does not depend on
+    the order the writes land in, sums included.  A row wider than 1,024
+    lanes gets its segment list, as ``ell_tiles`` builds it.  Returns ()
+    for an empty list.
+    """
+    device = resolve_device(device)
+    if src.shape[0] == 0:
+        return ()
+    order = np.argsort(dst, kind="stable")
+    dsts = dst[order]
+    rows, degs = np.unique(dsts, return_counts=True)
+    w_pad = _pad_dim(int(degs.max()), width_tile)
+    r_pad = _pad_dim(rows.shape[0], row_tile)
+    row_rep, col = _slot_coords(degs)
+    num_vertices = int(max(src.max(initial=0), dsts.max(initial=0))) + 1
+    idx = _scatter_plane(r_pad, w_pad, row_rep, col, src[order],
+                         _id_dtype(num_vertices))
+    wp = None if w is None else _scatter_plane(
+        r_pad, w_pad, row_rep, col, w[order], np.float32)
+    ap = None if alive is None else _scatter_plane(
+        r_pad, w_pad, row_rep, col, alive[order], np.int8)
+    deg_arr = np.zeros(r_pad, np.int32)
+    deg_arr[: rows.shape[0]] = degs
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(device)
+
+    return (EllTileGroup(
+        rows=t(rows.astype(np.int64)), idx=t(idx), deg=t(deg_arr), w=t(wp),
+        alive=t(ap), segments=class_segments(deg_arr, w_pad, device)),)
+
+
 def _scatter_combine(out: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
                      reduce: str) -> torch.Tensor:
     """Fold rows that duplicate primary rows in with the reduction (exact for
-    min / max; a float sum here depends on the order the adds land in)."""
+    min / max; a float sum here depends on the order the adds land in,
+    unless each row appears once, as in ``coo_tiles``' tiles)."""
     red = {"sum": "sum", "min": "amin", "max": "amax"}[reduce]
     index = rows.view((-1,) + (1,) * (vals.dim() - 1)).expand_as(vals)
     return out.scatter_reduce(0, index, vals, reduce=red, include_self=True)

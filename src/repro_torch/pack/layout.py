@@ -26,8 +26,7 @@ order, which is what makes packed analytics bit-identical to flat CSR runs.
 This is the PyTorch port's own copy of ``repro.pack.layout`` (host-side
 numpy; ``tests/test_torch_pack.py`` holds the two to bitwise-equal arrays).
 The hot id dtype is ``codec.min_uint_dtype(V - 1)``: uint8 up to 256
-vertices, uint16 up to 65,536, uint32 above.  ``PackedGraph.from_delta``
-(the streaming rebuild hook) waits for the port's ``stream`` slice.
+vertices, uint16 up to 65,536, uint32 above.
 """
 from __future__ import annotations
 
@@ -384,6 +383,13 @@ class PackedGraph:
         return csr.from_edges(src[order], dst[order], self.num_vertices,
                               weights=None if w is None else w[order],
                               name=self.name)
+
+    @classmethod
+    def from_delta(cls, dg, **kwargs) -> "PackedGraph":
+        """Rebuild hook for ``stream``: pack the current state of a
+        ``DeltaGraph`` (call after ``compact()`` so the base is fresh and the
+        packed layout tracks the compacted CSR)."""
+        return pack_graph(dg.snapshot(), **kwargs)
 
 
 def pack_graph(

@@ -4,8 +4,11 @@ across blocks), K4 (narrow tables, and hub rows split across blocks), K1
 (every lane, and only the real ones), hist_bin and the stable rank
 (``dbg_bin``) and K2 against their plain versions, the apps on
 ``ell`` and ``packed`` against ``flat``, the LM's greedy decode on the card
-against the CPU, the wrappers raising rather than falling back, and the
-edge-map counters' ``on_pass`` making no device synchronization.
+against the CPU, the wrappers raising rather than falling back, the
+edge-map counters' ``on_pass`` making no device synchronization, and the
+streaming plane: K5 over the stream's tiles (alive planes, a ``coo_tiles``
+delta tile), the unfused stream push without float atomics, and the
+incremental consumers against the CPU.
 
 Run on a machine with an NVIDIA card and ``nvcc``:
 
@@ -697,3 +700,164 @@ def test_counters_on_pass_makes_no_device_sync(cuda, backend):
             "edge_map.frontier_density")._samples)
     assert densities[0] == densities[1]
     assert 0.0 < densities[0][0] < densities[0][1] < 1.0
+
+
+# ------------------------------------------------------- K5 on stream tiles
+def _stream_graph(seed=0):
+    """A weighted graph of 5,000 vertices whose vertex 17 has 3,000
+    in-edges (a class wider than 1,024 lanes), after one batch that
+    tombstones 700 base edges (300 of them into the hub) and inserts 2,000
+    edges, 1,500 of them into vertex 29 (a delta row wider than 1,024
+    lanes)."""
+    from repro_torch.graph import csr
+    from repro_torch.stream import DeltaGraph
+
+    rng = np.random.default_rng(seed)
+    v = 5000
+    src = np.concatenate([rng.integers(0, v, 40_000),
+                          rng.integers(0, v, 3000)])
+    dst = np.concatenate([rng.integers(0, v, 40_000), np.full(3000, 17)])
+    w = rng.uniform(1, 16, src.shape[0]).astype(np.float32)
+    dg = DeltaGraph(csr.from_edges(src, dst, v, weights=w))
+    hub = np.flatnonzero(dst == 17)[:300]
+    rest = rng.choice(40_000, 400, replace=False)
+    kill = np.concatenate([hub, rest])
+    a_src = rng.integers(0, v, 2000)
+    a_dst = np.concatenate([np.full(1500, 29), rng.integers(0, v, 500)])
+    dg.apply(add_src=a_src, add_dst=a_dst,
+             add_w=rng.uniform(1, 16, 2000).astype(np.float32),
+             del_src=src[kill], del_dst=dst[kill])
+    return dg
+
+
+@pytest.mark.parametrize("mode", ["push", "pull"])
+@pytest.mark.parametrize("reduce", ["sum", "min", "max"])
+def test_k5_over_stream_tiles_matches_plain_version(cuda, reduce, mode):
+    """K5 over the stream's tiles: the base in-direction with its alive
+    plane (a class wider than 1,024 lanes among them) and a ``coo_tiles``
+    delta tile wider than 1,024 lanes, folded in as ``extra_tiles``;
+    push (``init``, weights, a frontier) and pull, against the same tiles
+    on the CPU (K5's plain version): min/max bitwise, sums in the band;
+    two calls bitwise; launches = base launches per pass + 2 for the delta
+    tile."""
+    from repro_torch.kernels._wrap import lanes_per_row
+    from repro_torch.kernels.edge_map import ell_edge_map
+    from repro_torch.stream import incremental
+
+    dg = _stream_graph()
+    v = dg.num_vertices
+    tiles = {dev: incremental.stream_push_tiles(dg, device=dev)
+             for dev in (torch.device("cpu"), cuda)}
+    base, delta = tiles[cuda]
+    assert all(t.alive is not None and t.alive.device.type == cuda.type
+               for t in base)
+    assert any(lanes_per_row(t.idx.shape[1]) == 256 for t in base)
+    assert len(delta) == 1 and delta[0].segments is not None
+    rows = delta[0].rows.cpu()
+    assert torch.equal(rows, torch.unique(rows))
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(v, generator=gen) * 8
+    front = torch.rand(v, generator=gen) < 0.7
+    init = torch.rand(v, generator=gen) * 30
+
+    def run(dev):
+        b, d = tiles[dev]
+        if mode == "push":
+            return incremental.edge_map_push_stream_fused(
+                b, d, x.to(dev), v, reduce=reduce, use_weights=True,
+                src_frontier=front.to(dev), init=init.to(dev))
+        return incremental.edge_map_pull_stream_fused(
+            b, d, x.to(dev), v, reduce=reduce, use_weights=reduce != "sum",
+            src_frontier=front.to(dev))
+
+    want = run(torch.device("cpu"))
+    before = ell_edge_map.launches
+    got, again = run(cuda), run(cuda)
+    torch.cuda.synchronize()
+    per_pass = sum(2 if lanes_per_row(t.idx.shape[1]) == 256 else 1
+                   for t in base + delta)
+    assert ell_edge_map.launches - before == 2 * per_pass
+    assert torch.equal(got, again)
+    if reduce == "sum":
+        _close(got.cpu(), want)
+    else:
+        assert torch.equal(got.cpu(), want)
+    # and the same function as the edge-parallel stream map on the card
+    sa = incremental.stream_arrays(dg, cuda)
+    flat = (incremental.edge_map_push_stream(
+        sa, x.to(cuda), reduce=reduce, use_weights=True,
+        src_frontier=front.to(cuda), init=init.to(cuda))
+        if mode == "push" else incremental.edge_map_pull_stream(
+        sa, x.to(cuda), reduce=reduce, use_weights=reduce != "sum",
+        src_frontier=front.to(cuda)))
+    if reduce == "sum":
+        _close(got, flat)
+    else:
+        assert torch.equal(got, flat)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min"])
+def test_unfused_stream_push_is_deterministic_on_the_card(cuda, reduce):
+    """The edge-parallel stream push runs sorted-segment reductions, no
+    float atomics: two calls bitwise equal, and within the band (sum) or
+    bitwise (min) of the same push on the CPU."""
+    from repro_torch.stream import incremental
+
+    dg = _stream_graph(seed=2)
+    v = dg.num_vertices
+    gen = torch.Generator().manual_seed(3)
+    x = torch.rand(v, generator=gen)
+    init = torch.rand(v, generator=gen)
+    out = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        sa = incremental.stream_arrays(dg, dev)
+        out.append(incremental.edge_map_push_stream(
+            sa, x.to(dev), reduce=reduce, use_weights=reduce == "min",
+            init=init.to(dev)).cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1])
+    if reduce == "sum":
+        _close(out[0], out[2])
+    else:
+        assert torch.equal(out[0], out[2])
+
+
+def test_incremental_consumers_on_the_card_match_the_cpu(cuda):
+    """IncrementalSSSP fused and unfused (bitwise) and IncrementalPageRank
+    fused and unfused (each within 1e-8 of the same path) on the card
+    against the same consumers on the CPU, over three insert+delete batches
+    and a compaction, on the graph of the reference's 1e-8 band (``lj``)."""
+    from repro_torch.graph import datasets
+    from repro_torch.stream import (DeltaGraph, IncrementalPageRank,
+                                    IncrementalSSSP)
+
+    base = datasets.load_weighted("lj", "test", seed=1)
+    rng = np.random.default_rng(4)
+    devs = (cuda, torch.device("cpu"))
+    dgs = [DeltaGraph(base) for _ in devs]
+    cons = [[IncrementalSSSP(dg, 0, device=dev),
+             IncrementalSSSP(dg, 0, use_fused_push=True, device=dev),
+             IncrementalPageRank(dg, device=dev),
+             IncrementalPageRank(dg, use_fused_push=True, device=dev)]
+            for dev, dg in zip(devs, dgs)]
+    for step in range(4):
+        if step:
+            es, ed, _ = dgs[1].alive_edges()
+            kill = rng.choice(es.shape[0], 100, replace=False)
+            batch = dict(add_src=rng.integers(0, base.num_vertices, 300),
+                         add_dst=rng.integers(0, base.num_vertices, 300),
+                         add_w=rng.uniform(1, 16, 300).astype(np.float32),
+                         del_src=es[kill], del_dst=ed[kill])
+            for dg, cs in zip(dgs, cons):
+                res = dg.apply(**batch)
+                for c in cs:
+                    c.ingest(res)
+                if step == 3:
+                    dg.compact()
+                    for c in cs[2:]:
+                        c.resync()
+        got, want = ([c.query() for c in cs] for cs in cons)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[0])
+        for g, w in zip(got[2:], want[2:]):  # each path against its twin
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-8)

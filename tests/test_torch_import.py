@@ -57,7 +57,7 @@ def _imported_names(path: Path):
 def test_the_source_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in SOURCES if PORT in p.parents}
     for pkg in ("apps", "cachesim", "configs", "core", "data", "graph",
-                "kernels", "launch", "lm", "obs", "pack"):
+                "kernels", "launch", "lm", "obs", "pack", "stream"):
         assert pkg in scanned
     assert ROOT / "chip_smoke.py" in SOURCES
 
