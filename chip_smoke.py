@@ -70,9 +70,11 @@ Phases (any failure raises, and the script exits non-zero):
      orderings of ``EVAL_ORDERINGS`` (the paper's five techniques, the
      original order and ``random_vertex``), each built once as ``ell``
      (``original`` and ``dbg`` reuse phase 4's backends), with its host
-     reorder seconds; the five apps on the same problem (the main path's
-     root and Radii sources mapped through each ordering, SSSP on phase
-     4's weighted graph relabelled), held after mapping back to the
+     reorder seconds and one pull on the device alone over a (V,) vector
+     and over a (V, 8) plane (64 MiB at 2^21, past the L2); the five apps
+     on the same problem (the main path's root and Radii sources mapped
+     through each ordering, SSSP on phase 4's weighted graph
+     relabelled), held after mapping back to the
      original order's results (PageRank in phase 4's band, SSSP and Radii
      bitwise, BC's levels bitwise and centrality within 1e-5); each app's
      warm median; one run with ``obs.counters`` installed, bitwise equal,
@@ -114,37 +116,67 @@ Phases (any failure raises, and the script exits non-zero):
      bitwise, against each other in the sum band) beside the fused push's
      bound over the real lanes; one ``locality()``; the phase's peak
      device memory; and a ``stream`` JSON line;
- 11. (the graph state freed) K2 vs its plain version on the card, bitwise:
+ 11. the serving plane on phase 4's weighted DBG graph (nothing
+     regenerated): the card's copy and float32 matmul rates beside the
+     port's ``"h100"`` roofline profile (``measure_hw``); the reference's
+     tuning workflow on the card (``tune.search.sweep`` of PageRank and
+     SSSP on the registry's ``kr`` at ``TUNE_SCALE``, SSSP's switch point
+     refined, every chosen backend held to ``flat``), then a lighter sweep
+     on the served graph itself (at ``TUNE_SCALE`` the card's sweep picks
+     ``flat``, which is 4x slower at 2^21), and the plan of both families
+     set active;
+     ``GraphServeService(backend="auto", incremental_publish=True)``
+     answering ``SERVE_QUERIES`` queries at each width of ``SERVE_WIDTHS``
+     on version 0 (bursts of K SSSP roots, then K one-hot PageRank roots; a
+     warm run, then a timed one) through the plan's backends, one K5 pass
+     per iteration over the (V, K) plane: QPS, latency p50/p99, occupancy,
+     seconds per batch and per ``engine.solve.*`` span, iterations and K5
+     launches per width; every SSSP lane bitwise equal to ``apps.sssp`` on
+     the same backend with the same iterations, every PageRank lane within
+     phase 4's band of its K = 1 twin, one uniform lane within it of
+     ``apps.pagerank``; then ``SERVE_CHURN_BURSTS`` bursts of a
+     ``SERVE_CHURN_EDGES``-edge ``ChurnStream`` batch (O(delta) publishes,
+     queries on the stream backend) + 8 queries, every version pinned, the
+     first and last churned versions forced and re-solved on ``flat`` (SSSP
+     bitwise, PageRank in the band), ingest and publish seconds, QPS and
+     ``health()``; then K5 over a (V, 8) plane (``time_plane``) from an
+     idle device and on the device alone, beside 8 pulls of one column,
+     cuSPARSE SpMM and the bound, and one ``batched_sssp`` push step at
+     K = 8; it prints a ``serve`` JSON line;
+ 12. (the graph state freed) K2 vs its plain version on the card, bitwise:
      ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
      widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
      Zipf ids, and at a T that is not a multiple of 32; all-hot and
      all-cold batches, int64 and strided ids too;
- 12. the LM serving path at reduced size, card against CPU: reduced Yi-9B
+ 13. the LM serving path at reduced size, card against CPU: reduced Yi-9B
      (GQA) and reduced OLMo-1B, same weights, ``generate`` (batch 2, prompt
      8, 8 new): logits of every step within rtol 1e-4, atol 1e-5, tokens
      equal;
- 13. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
+ 14. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
      float32, random weights from a seeded generator on the card) serves 4
      requests of 32 Zipf prompt tokens (DBG vocabulary) + 32 greedy tokens;
      K2 must launch once per ``decode_step`` (64), every token lies in the
      vocabulary, the last logits are finite, and the split gather of the
      served ids equals its plain version bitwise;
- 14. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
+ 15. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
      the plain version, ``F.embedding`` over the joined table and the
      bound, from an idle device and on the device alone; the wrapper's host
      time per call; and, under ``torch.profiler``, the device operations
      of one ``embed_lookup`` at a prefill and at a decode step (1 each) and
      of one hist_bin (1) and one dbg_bin call (2) at phase 8's call, read
-     together here: in runs that first profiled in phase 8, phase 14's
+     together here: in runs that first profiled in phase 8, phase 15's
      profile of the prefill lookup held no device event.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
 device and ``device_ms`` on the device alone, its library call's
 ``library_ms`` and ``library_device_ms``, its worst error against the plain
 version ``max_abs_err``, the TPU kernel it replaces ``replaces``, its
-launches on each path ``launches_by_path``, ``stream`` among them; K5's
-``stream_push`` times one push over the stream's tiles, its ``bound_ms``
-over the real lanes and ``padded_bound_ms`` over the planes; K1's ``ms`` and
+launches on each path ``launches_by_path``, ``stream`` and ``serve`` among
+them; K5's ``stream_push`` times one push over the stream's tiles, its
+``bound_ms`` over the real lanes and ``padded_bound_ms`` over the planes,
+and its ``serve_plane`` one pull over the serving graph's (V, 8) plane
+beside 8 one-column pulls, cuSPARSE SpMM and the bound, with one
+``batched_sssp`` push step at K = 8; K1's ``ms`` and
 ``bound_ms`` are
 its degree walk's, ``padded_ms`` and ``padded_bound_ms`` its every-lane
 path's; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG,
@@ -188,17 +220,27 @@ EVAL_TRACED = "sort"       # phase 9 traces this ordering's build and a PageRank
 # phase 10: the reference churn benchmark's traffic (benchmarks/stream_churn.py)
 # with its 256-edge series left out: on the H100's host that series took
 # ~60 s of a phase that ran 448 s (PERF.md, the stream cell), and the script
-# must stay inside its time limit
+# must stay inside its time limit; for the same reason each series runs 6
+# batches, not the 10 of PR 18 (phase 11 came after it)
 STREAM_SIZES = (1024, 4096)       # edges per batch, one series each
-STREAM_BATCHES = 10               # batches per series, all on one service
+STREAM_BATCHES = 6                # batches per series, all on one service
 STREAM_INSERT_FRAC = 0.75
 # the incremental_dbg policy (regroup every batch) with the fused PageRank
-# push; the threshold puts exactly the final batch over it: 47,104 edges of
-# churn before it, 51,200 with it, against 0.0012 x 41,943,040 = 50,331.6
+# push; the threshold puts exactly the final batch over it: 26,624 edges of
+# churn before it, 30,720 with it, against 0.0007 x 41,943,040 = 29,360.1
 STREAM_CONFIG = dict(pr_fused_push=True, regroup_every=1,
-                     compact_threshold=0.0012)
+                     compact_threshold=0.0007)
 # then one batch of inserts alone: the incremental SSSP relaxation
 STREAM_INSERT_ONLY = 4096
+# phase 11: the serving plane (the reference's serve_qps workload on
+# benchmarks/serve_qps.py's settings, its churn apart), tuned on the card
+TUNE_SCALE = "large"               # the registry kr the tuner sweeps
+SERVE_WIDTHS = (1, 2, 4, 8)        # K: lanes per batch
+SERVE_QUERIES = 160                # queries per width (K = 8: 20 batches)
+SERVE_CHURN_BURSTS = 8             # then churn: bursts of ingest + queries
+SERVE_CHURN_EDGES = 1024           # edges per churn batch
+HW_COPY_BYTES = 2 << 30            # the timed copy behind the H100 profile
+HW_MATMUL_N = 8192                 # the timed float32 matmul, n^3
 STREAM_KEYS = ("ingest_s", "edges_per_s", "apply_s", "folds_s", "regroup_s",
                "moved", "extra_folds_s", "ingest_total_s", "tiles_s",
                "alive_s", "coo_s", "pr_fused_s", "pr_fused_iters",
@@ -255,6 +297,18 @@ def _reset_launches():
 
 def _read_launches():
     return {name: fn.launches for name, (fn, _, _) in _wrappers().items()}
+
+
+def _launched(acc, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and the launches it made by kernel, each also
+    added into ``acc``: a path's count over its own calls only, where
+    checks between them launch the same kernels."""
+    c0 = _read_launches()
+    out = fn(*args, **kwargs)
+    made = {n: c - c0[n] for n, c in _read_launches().items()}
+    for n, c in made.items():
+        acc[n] = acc.get(n, 0) + c
+    return out, made
 
 
 def _chunked(fn, rows, width, *planes):
@@ -498,6 +552,22 @@ def time_apps(runs, backends, records, names):
             records[app].update({f"{bname}_{k}": x for k, x in t.items()})
 
 
+def _rank_gap(got, want, what):
+    """``got`` against ``want`` in units of the uniform rank 1/V (rtol
+    1e-4, atol 2e-4 / V, phase 4's band): the worst gap as a share of the
+    band, which must not pass 1.  The reference's atol 1e-7 at a
+    2,000-vertex graph is 2e-4 of that unit, and rtol 1e-4 covers the
+    summation-order noise of hub rows with ~10^5 in-edges; a lane missing
+    from a row of average degree moves its rank by ~4%."""
+    v = want.shape[0]
+    a, b = got.double() * v, want.double() * v
+    used = float(((a - b).abs() / (2e-4 + 1e-4 * b.abs())).max())
+    if not used <= 1.0:
+        raise AssertionError(f"{what}: ranks differ by {used:.3g}x the band "
+                             "(rtol 1e-4, atol 2e-4 / V)")
+    return used
+
+
 def _compare_app(name, eo, fo):
     import torch
 
@@ -514,17 +584,8 @@ def _compare_app(name, eo, fo):
         (r1, i1), (r2, i2) = eo, fo
         if not (torch.isfinite(r1).all() and r1.shape == r2.shape):
             raise AssertionError(f"{name}: ranks not finite")
-        # Ranks in units of the uniform rank 1/V: the reference's atol 1e-7
-        # at a 2,000-vertex graph is 2e-4 of that unit, and rtol 1e-4 covers
-        # the summation-order noise of hub rows with ~10^5 in-edges.  A lane
-        # missing from a row of average degree moves its rank by ~4%.
-        v = r1.numel()
-        a, b = r1.double() * v, r2.double() * v
-        used = float(((a - b).abs() / (2e-4 + 1e-4 * b.abs())).max())
+        used = _rank_gap(r1, r2, name)
         log(f"  {name}: worst rank gap {used:.3g} of the band")
-        if not used <= 1.0:
-            raise AssertionError(f"{name}: ranks differ by {used:.3g}x the "
-                                 "band (rtol 1e-4, atol 2e-4 / V)")
         if abs(i1 - i2) > 1:
             raise AssertionError(f"{name}: iterations {i1} vs {i2}")
         return (i1, i2)
@@ -1377,10 +1438,16 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
                        .manual_seed(2), device=device)
         pull_ms = _events_ms(lambda: ell.pull(x, reduce="sum"), REPS,
                              device_only=True)
+        # the same pull over a (V, 8) plane, 64 MiB at 2^21: past the L2
+        x8 = torch.rand(v, 8, generator=torch.Generator(device=device)
+                        .manual_seed(3), device=device)
+        pull8_ms = _events_ms(lambda: ell.pull(x8, reduce="sum"), REPS,
+                              device_only=True)
         log(f"  ordering {ordering}: host reorder {reorder_s:.2f} s (mapping "
             f"+ CSR rebuild; {t1 - t0:.1f} s here), weighted relabel "
             f"{t2 - t1:.1f} s, ell backends {t3 - t2:.1f} s; one pull on "
-            f"the device alone {pull_ms:.4f} ms; cache model of the pull "
+            f"the device alone {pull_ms:.4f} ms, over a (V, 8) plane "
+            f"{pull8_ms:.4f} ms; cache model of the pull "
             f"trace ({cache['accesses']} accesses, {cache['seconds']:.1f} "
             f"s): L1 {cache['l1_mpka']:.2f}, L2 {cache['l2_mpka']:.2f}, L3 "
             f"{cache['l3_mpka']:.2f} MPKA, AMAT {cache['amat_cycles']:.3f} "
@@ -1421,7 +1488,7 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
                     f"{ordering} {app}: {launches} K5 launches, the counters' "
                     f"passes {passes} give {expect}")
             row = dict(ordering=ordering, app=app, **t, reorder_s=reorder_s,
-                       pull_device_ms=pull_ms,
+                       pull_device_ms=pull_ms, pull8_device_ms=pull8_ms,
                        iters=out[-1], launches=launches, passes=passes,
                        edges=int(s["edge_map.edges"]),
                        model_bytes=int(s["edge_map.model_bytes"]),
@@ -1446,7 +1513,7 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
                 f"edges {row['edges']}, modeled {row['model_bytes']} B "
                 f"({row['model_gb_per_s']:.1f} GB/s, the reference's model "
                 f"over the padded planes)")
-        del ell, ell_w, g_x, gw_x, m, x
+        del ell, ell_w, g_x, gw_x, m, x, x8
         gc.collect()
         torch.cuda.empty_cache()
     # The DBG ordering's backends are phase 4's and still on the card: its
@@ -1991,6 +2058,636 @@ def _stream_push_device(dg, device):
 
 
 # ---------------------------------------------------------------- phase 11
+def measure_hw(device):
+    """The card's memory rate and float32 rate, as the port's ``"h100"``
+    roofline profile holds them: a timed device-to-device copy of
+    ``HW_COPY_BYTES`` (bytes read + written over its time) and a timed
+    float32 ``torch.matmul`` of ``HW_MATMUL_N``^3 with TF32 off (2 n^3
+    operations over its time), each the median of ``REPS`` event-timed
+    calls."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must not run in TF32")
+    n = HW_COPY_BYTES // 4
+    a = torch.ones(n, dtype=torch.float32, device=device)
+    b = torch.empty_like(a)
+    copy_ms = _events_ms(lambda: b.copy_(a), REPS)
+    if not torch.equal(a[:1024], b[:1024]):
+        raise AssertionError("the timed copy did not copy")
+    del a, b
+    m = HW_MATMUL_N
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.rand(m, m, generator=gen, device=device)
+    y = torch.rand(m, m, generator=gen, device=device)
+    mm_ms = _events_ms(lambda: torch.matmul(x, y), 5)
+    del x, y
+    torch.cuda.empty_cache()
+    return dict(copy_bytes=HW_COPY_BYTES, copy_ms=copy_ms,
+                hbm_bw=2 * HW_COPY_BYTES / (copy_ms * 1e-3),
+                matmul_n=m, matmul_ms=mm_ms,
+                peak_flops=2 * m ** 3 / (mm_ms * 1e-3))
+
+
+def _sweep_family(g, gw, device, top_k, extras, reps_schedule):
+    """``tune.search.sweep`` of PageRank on ``g`` and SSSP on ``gw`` (the
+    ``"h100"`` profile), SSSP's switch point refined: the chosen configs by
+    app and the audit."""
+    from repro_torch.roofline import HW
+    from repro_torch.tune import search
+
+    hw = HW.profile("h100")
+    configs, audit = {}, {}
+    for app, graph in (("pr", g), ("sssp", gw)):
+        t = time.perf_counter()
+        res = search.sweep(graph, app=app, top_k=top_k, extras=extras,
+                           reps_schedule=reps_schedule, hw=hw, device=device)
+        sweep_s = time.perf_counter() - t
+        chosen, timings = dict(res.chosen), None
+        if app == "sssp":
+            t = time.perf_counter()
+            chosen, timings = search.refine_density_threshold(
+                gw, chosen, app="sssp", device=device)
+            refine_s = time.perf_counter() - t
+        errors = [t.error for t in res.trials if t.error]
+        if errors:
+            raise AssertionError(f"tune {app}: trials failed: {errors}")
+        configs[app] = chosen
+        audit[app] = dict(
+            chosen=chosen, winner=res.winner, chosen_ms=res.chosen_s * 1e3,
+            winner_ms=res.winner_s * 1e3, default_ms=res.default_s * 1e3,
+            speedup_vs_default=res.speedup_vs_default, honest=res.honest,
+            honest_strict=res.honest_strict,
+            num_candidates=res.num_candidates, num_measured=res.num_measured,
+            sweep_s=sweep_s,
+            trials=[dict(config=t.config, source=t.source,
+                         model_bytes=t.model_bytes, feasible=t.feasible,
+                         best_ms=t.best_s * 1e3,
+                         eliminated_round=t.eliminated_round)
+                    for t in res.trials])
+        if timings is not None:
+            audit[app].update(density_ms={str(k): s * 1e3
+                                          for k, s in timings.items()},
+                              refine_s=refine_s)
+        log(f"  tune {app}: {res.num_measured} of {res.num_candidates} "
+            f"candidates measured in {sweep_s:.1f} s; winner {res.winner} "
+            f"{res.winner_s * 1e3:.3f} ms; chosen {chosen} "
+            f"{res.chosen_s * 1e3:.3f} ms (default "
+            f"{res.default_s * 1e3:.3f} ms, x{res.speedup_vs_default:.3f}); "
+            f"honest {res.honest}, honest_strict {res.honest_strict}"
+            + ("" if timings is None else
+               "; switch points " + ", ".join(
+                   f"{k} {s * 1e3:.3f} ms" for k, s in sorted(timings.items()))
+               + f" ({refine_s:.1f} s)"))
+        for tr in audit[app]["trials"]:
+            log(f"    {tr['source']:9s} {tr['config']}: {tr['model_bytes']} "
+                f"B{'' if tr['feasible'] else ' (over budget)'}, best "
+                f"{tr['best_ms']:.3f} ms, eliminated "
+                f"{tr['eliminated_round']}")
+    return configs, audit
+
+
+def tune_on_card(gw_serve, device):
+    """The reference's tuning workflow on the card, for two families.
+
+    ``kr`` at ``TUNE_SCALE`` (the registry graph, as the reference tunes):
+    ``sweep`` with ``top_k=3``, ``extras=1``, ``reps_schedule=(1, 3)``, the
+    other apps by least modeled bytes, every distinct chosen backend held
+    to ``flat`` (SSSP bitwise, PageRank in phase 4's band).  Then the
+    served graph ``gw_serve`` itself (``top_k=2``, ``extras=1``, one round:
+    a candidate's build at 2^21 costs seconds), PageRank and SSSP only:
+    the card's sweep at ``TUNE_SCALE`` picks ``flat`` (its launches per
+    iteration outweigh the pull there), which phase 4 measures 4x slower
+    than ``ell`` at 2^21, so the served graph's nearest family must be its
+    own.  Its backends are held to ``flat`` by ``serving_plane``.  The plan
+    of both families is set active.  Returns the audit record."""
+    from repro_torch import apps
+    from repro_torch.graph import datasets
+    from repro_torch.roofline import HW
+    from repro_torch.tune import cost, plan, space
+
+    t_all = time.perf_counter()
+    g = datasets.load("kr", TUNE_SCALE)
+    gw = datasets.load_weighted("kr", TUNE_SCALE)
+    hw = HW.profile("h100")
+    log(f"  tune: kr at {TUNE_SCALE} scale, V={g.num_vertices} "
+        f"E={g.num_edges} (generated in {time.perf_counter() - t_all:.1f} "
+        f"s); profile {hw}")
+    configs, audit = _sweep_family(g, gw, device, 3, 1, (1, 3))
+    grid = space.engine_space().grid()
+    for app in ("prd", "bc", "radii"):  # priced only, least modeled bytes
+        ranked = cost.rank(cost.GraphCost.from_graph(g), grid, app=app, hw=hw)
+        configs[app] = dict(min(ranked, key=lambda s: (
+            s.model_bytes, cost.config_key(s.config))).config)
+    configs["default"] = dict(configs["pr"])
+    # every distinct backend the registry family serves, held to flat
+    t = time.perf_counter()
+    flat, flat_w = (apps.to_arrays(x, device=device) for x in (g, gw))
+    pr_want, _ = apps.pagerank(flat)
+    d_want, _ = apps.sssp(flat_w, 0)
+    verified = {}
+    for cfg in configs.values():
+        eng = space.split_config(cfg)[0]
+        key = cost.config_key(eng)
+        if key in verified:
+            continue
+        kw = dict(eng)
+        name = kw.pop("backend")
+        ga = apps.to_arrays(g, backend=name, device=device, **kw)
+        gaw = apps.to_arrays(gw, backend=name, device=device, **kw)
+        pr, _ = apps.pagerank(ga)
+        d, _ = apps.sssp(gaw, 0)
+        if not _same(d, d_want):
+            raise AssertionError(f"tune: {eng} SSSP differs from flat")
+        verified[key] = _rank_gap(pr, pr_want, f"tune {eng} PageRank")
+        del ga, gaw
+    del flat, flat_w
+    audit["verified"] = verified
+    audit["verify_s"] = time.perf_counter() - t
+    log(f"  tune: kr at {TUNE_SCALE}: {configs}; {len(verified)} backends "
+        f"held to flat (SSSP bitwise, worst PageRank gap "
+        f"{max(verified.values()):.3g} of the band) in "
+        f"{audit['verify_s']:.1f} s")
+    t = time.perf_counter()
+    log(f"  tune: the served graph, V={gw_serve.num_vertices} "
+        f"E={gw_serve.num_edges}")
+    served, audit["served"] = _sweep_family(gw_serve, gw_serve, device, 2, 1,
+                                            (1,))
+    served["default"] = dict(served["pr"])
+    audit["served_s"] = time.perf_counter() - t
+    cells = [{"family": f"kr-{TUNE_SCALE}", "features": plan.graph_features(g),
+              "configs": configs},
+             {"family": "kr-served", "configs": served,
+              "features": plan.graph_features(gw_serve)}]
+    p = plan.build_plan(cells, meta={"scale": TUNE_SCALE, "profile": hw.name})
+    plan.set_active_plan(p)
+    audit.update(configs=configs, served_configs=served,
+                 features=plan.graph_features(g),
+                 served_features=plan.graph_features(gw_serve),
+                 seconds=time.perf_counter() - t_all)
+    log(f"  tune: the served graph's family {served} "
+        f"({audit['served_s']:.1f} s); the tune took "
+        f"{audit['seconds']:.1f} s")
+    return audit
+
+
+def _serve_roots(v, kind, n):
+    """The seeded roots of ``n`` queries of ``kind``: the same for every
+    width, so each lane has its K = 1 twin."""
+    import numpy as np
+
+    seed = {"sssp": 17, "pagerank": 18}[kind]
+    return [int(r) for r in np.random.default_rng(seed).integers(0, v, n)]
+
+
+def _rewidth(svc, k):
+    """``svc`` admitting batches of width ``k`` (``max_depth`` 4k), with
+    fresh admission counters and serving metrics; its stream plane, store
+    and snapshots stay."""
+    import dataclasses
+
+    from repro_torch.serve import QueryQueue, ServeMetrics
+
+    svc.config = dataclasses.replace(svc.config, max_width=k,
+                                     max_depth=4 * k)
+    svc.queue = QueryQueue(max_width=k, max_depth=4 * k,
+                           deadline=svc.config.deadline, clock=svc._clock)
+    svc.metrics = ServeMetrics(k)
+
+
+def _serve_workload(svc, k, roots, qroot):
+    """``SERVE_QUERIES`` queries in bursts that alternate ``k`` SSSP roots
+    with ``k`` one-hot PageRank roots, each burst drained; the results in
+    order and the seconds.  ``qroot`` maps each qid to its root."""
+    from repro_torch.serve import Query
+
+    taken = {"sssp": 0, "pagerank": 0}
+    out, burst = [], 0
+    t = time.perf_counter()
+    while len(out) < SERVE_QUERIES:
+        kind = "sssp" if burst % 2 == 0 else "pagerank"
+        for _ in range(min(k, SERVE_QUERIES - len(out))):
+            root = roots[kind][taken[kind]]
+            taken[kind] += 1
+            qroot[svc.submit(Query(kind, root=root))] = root
+        out.extend(svc.drain())
+        burst += 1
+    _sync()
+    return out, time.perf_counter() - t
+
+
+def serving_plane(gw, device):
+    """Phase 11, the serving plane at the main path's size: a tuned plan
+    from the card, ``GraphServeService(backend="auto")`` on phase 4's
+    weighted DBG graph answering ``SERVE_QUERIES`` queries at each width of
+    ``SERVE_WIDTHS`` on version 0 (one K5 pass per iteration over the
+    (V, K) plane), then ``SERVE_CHURN_BURSTS`` bursts of churn on O(delta)
+    versions, snapshot isolation checked; then K5 over a (V, 8) plane
+    timed.  Returns the ``serve`` JSON record; its ``launches`` are those of
+    the service's own calls (the workloads, the uniform lane's batch, the
+    churn's ingests and drains), not of the tune or the checks between
+    them, which launch the same kernels."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import apps
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve import GraphServeService, Query, ServeConfig
+
+    t_phase = time.perf_counter()
+    out = {}
+    out["hw"] = hw = measure_hw(device)
+    from repro_torch.roofline import HW
+
+    prof = HW.profile("h100")
+    log(f"  the card's rates: copy of {hw['copy_bytes'] / 2**30:.0f} GiB "
+        f"{hw['copy_ms']:.3f} ms = {hw['hbm_bw'] / 1e12:.4f} TB/s (profile "
+        f"{prof.hbm_bw / 1e12:.4f}); float32 matmul {hw['matmul_n']}^3 "
+        f"{hw['matmul_ms']:.3f} ms = {hw['peak_flops'] / 1e12:.3f} TFLOP/s "
+        f"(profile {prof.peak_flops / 1e12:.3f}; TF32 off)")
+    out["tune"] = tune_on_card(gw, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    v = gw.num_vertices
+    cfg = ServeConfig(backend="auto", max_width=max(SERVE_WIDTHS),
+                      max_depth=4 * max(SERVE_WIDTHS), pr_max_iters=15,
+                      publish_every=1, incremental_publish=True)
+    t = time.perf_counter()
+    svc = GraphServeService(gw, cfg, device=device)
+    out["service_s"] = time.perf_counter() - t
+    log(f"  service: built in {out['service_s']:.1f} s (the stream plane's "
+        f"DeltaGraph and consumers, version 0 materialized); {cfg}")
+    roots = {kind: _serve_roots(v, kind, SERVE_QUERIES)
+             for kind in ("sssp", "pagerank")}
+    tr = obs_trace.enable()
+    _reset_launches()
+    launches = {}  # the service's own calls only
+    snap0 = svc.store.acquire()
+    widths, single, k1_lanes = [], {}, {}
+    try:
+        for k in SERVE_WIDTHS:
+            _rewidth(svc, k)
+            qroot = {}
+            n0 = len(tr.events)
+            (warm, warm_s), _ = _launched(launches, _serve_workload, svc, k,
+                                          roots, qroot)
+            builds = [e for e in tr.events[n0:] if e["ph"] == "X"
+                      and e["name"] == "engine.build_backend"]
+            _rewidth(svc, k)
+            qroot = {}
+            n0 = len(tr.events)
+            (res, secs), made = _launched(launches, _serve_workload, svc, k,
+                                          roots, qroot)
+            spans = [e for e in tr.events[n0:] if e["ph"] == "X"]
+            solve = [e["dur"] / 1e6 for e in spans
+                     if e["name"].startswith("engine.solve.")]
+            summ = svc.metrics.summary()
+            rec = dict(
+                width=k, queries=len(res), seconds=secs, qps=len(res) / secs,
+                warm_seconds=warm_s, build_s=sum(e["dur"] for e in builds)
+                / 1e6, latency_p50_ms=summ["latency_p50_ms"],
+                latency_p99_ms=summ["latency_p99_ms"],
+                occupancy=summ["occupancy"], batches=summ["batches"],
+                batch_ms_mean=summ["batch_ms_mean"],
+                solve_ms_mean=1e3 * sum(solve) / len(solve),
+                iters_sssp=float(np.mean([r.iters for r in res
+                                          if r.kind == "sssp"])),
+                iters_pagerank=float(np.mean([r.iters for r in res
+                                              if r.kind == "pagerank"])),
+                launches=made)
+            if rec["launches"]["ell_edge_map"] == 0:
+                raise AssertionError(f"serve K={k}: K5 was never launched")
+            if any(r.snapshot_version != 0 for r in res):
+                raise AssertionError("serve: a version-0 query saw another")
+            # every SSSP lane bitwise against apps.sssp on the same resolved
+            # backend, with the same iteration count; every PageRank lane
+            # against its K = 1 twin
+            ga_s = svc._backend(snap0, "sssp")
+            thr = svc._sssp_threshold(snap0)
+            gaps = []
+            for r in res:
+                root = qroot[r.qid]
+                if r.kind == "sssp":
+                    if root not in single:
+                        d, it = apps.sssp(ga_s, root, density_threshold=thr)
+                        single[root] = (d.cpu().numpy(), it)
+                    d, it = single[root]
+                    if not np.array_equal(r.value, d) or r.iters != it:
+                        raise AssertionError(
+                            f"serve K={k}: SSSP lane from {root} differs "
+                            f"from apps.sssp ({r.iters} vs {it} iterations)")
+                elif k == 1:
+                    k1_lanes[root] = r
+                else:
+                    twin = k1_lanes[root]
+                    gaps.append(_rank_gap(torch.from_numpy(r.value),
+                                          torch.from_numpy(twin.value),
+                                          f"serve K={k} PageRank lane"))
+                    if abs(r.iters - twin.iters) > 1:
+                        raise AssertionError(
+                            f"serve K={k}: PageRank lane iterations "
+                            f"{r.iters} vs {twin.iters} at K = 1")
+            rec["pagerank_gap"] = max(gaps, default=0.0)
+            widths.append(rec)
+            log(f"  serve K={k}: {rec['queries']} queries in "
+                f"{secs:.3f} s = {rec['qps']:.2f} QPS (warm run "
+                f"{warm_s:.2f} s" + (f", backend builds {rec['build_s']:.1f}"
+                                     " s" if builds else "")
+                + f"); latency p50 {rec['latency_p50_ms']:.1f} ms, p99 "
+                f"{rec['latency_p99_ms']:.1f} ms; occupancy "
+                f"{rec['occupancy']:.3f}; {rec['batches']} batches, "
+                f"{rec['batch_ms_mean']:.2f} ms each (engine.solve "
+                f"{rec['solve_ms_mean']:.2f} ms); iterations SSSP "
+                f"{rec['iters_sssp']:.1f}, PageRank "
+                f"{rec['iters_pagerank']:.1f}; K5 launches "
+                f"{rec['launches']['ell_edge_map']}; SSSP lanes bitwise "
+                f"equal to apps.sssp"
+                + ("" if k == 1 else f", PageRank lanes within "
+                   f"{rec['pagerank_gap']:.3g} of the band of their K = 1 "
+                   "twins"))
+        # one uniform lane against apps.pagerank, in a batch of one-hot ones
+        k = max(SERVE_WIDTHS)
+        qids = [svc.submit(Query("pagerank"))] + [
+            svc.submit(Query("pagerank", root=r))
+            for r in roots["pagerank"][:k - 1]]
+        res = {r.qid: r for r in _launched(launches, svc.drain)[0]}
+        ga_p = svc._backend(snap0, "pagerank")
+        want, it = apps.pagerank(ga_p, max_iters=cfg.pr_max_iters,
+                                 tol=cfg.pr_tol)
+        uni = res[qids[0]]
+        out["uniform_gap"] = _rank_gap(torch.from_numpy(uni.value),
+                                       want.cpu(), "serve uniform lane")
+        if abs(uni.iters - it) > 1:
+            raise AssertionError(f"serve uniform lane: {uni.iters} "
+                                 f"iterations vs {it}")
+        out["backends"] = {kind: type(svc._backend(snap0, kind)).__name__
+                           for kind in ("pagerank", "sssp")}
+        log(f"  a uniform lane among {k - 1} one-hot ones: within "
+            f"{out['uniform_gap']:.3g} of the band of apps.pagerank "
+            f"({uni.iters} vs {it} iterations); backends {out['backends']}")
+        out["widths"] = widths
+        out["churn"] = _serve_churn(svc, gw, device, tr, launches)
+        # the served family's backends held to flat, as the tune holds the
+        # registry family's: SSSP bitwise, PageRank in phase 4's band
+        flat = apps.to_arrays(gw, device=device)
+        d_a, _ = apps.sssp(ga_s, 0, density_threshold=thr)
+        d_f, _ = apps.sssp(flat, 0)
+        if not torch.equal(d_a, d_f):
+            raise AssertionError("serve: the served SSSP backend differs "
+                                 "from flat (must be bitwise)")
+        out["served_vs_flat_gap"] = _rank_gap(
+            apps.pagerank(ga_p)[0], apps.pagerank(flat)[0],
+            "serve: the served PageRank backend vs flat")
+        log(f"  the served backends vs flat: SSSP bitwise, PageRank within "
+            f"{out['served_vs_flat_gap']:.3g} of the band")
+        out["plane"] = time_plane(ga_p, ga_s, flat, max(SERVE_WIDTHS),
+                                  device)
+        del flat
+    finally:
+        obs_trace.disable()
+        svc.store.release(snap0)
+    del svc, ga_s, ga_p, single, k1_lanes
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _serve_churn(svc, gw, device, tr, launches):
+    """``SERVE_CHURN_BURSTS`` bursts on ``svc`` (width 8): each ingests one
+    ``ChurnStream`` batch of ``SERVE_CHURN_EDGES`` (seed 3), which publishes
+    an O(delta) version, submits 8 mixed queries and drains.  Every version
+    is pinned; the first and the last churned versions are forced
+    (``Snapshot.graph``, O(E)) and one SSSP answer re-solved on ``flat``
+    (bitwise), one PageRank answer too (phase 4's band).
+
+    The ingest's seconds run to the device's end (synchronized after the
+    call).  The publish's are read from the trace ``tr`` without touching
+    the path: the ``serve.ingest`` span less the ``stream.ingest`` span in
+    it, the host time of ``_publish`` (``StreamBackend.from_delta``).  The
+    ingests' and drains' launches are added into ``launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import apps
+    from repro_torch.serve import Query, batched
+    from repro_torch.stream import StreamBackend
+
+    k = max(SERVE_WIDTHS)
+    _rewidth(svc, k)
+    stream = ChurnStream(gw, insert_frac=STREAM_INSERT_FRAC, seed=3)
+    rng = np.random.default_rng(19)
+    v = gw.num_vertices
+    pins, results, qroot, ingest_s, publish_s = {}, [], {}, [], []
+    t_all = time.perf_counter()
+    for burst in range(SERVE_CHURN_BURSTS):
+        a_s, a_d, d_s, d_d = stream.next_batch(svc.stream.dg,
+                                               SERVE_CHURN_EDGES)
+        a_w = stream.weights(a_s.shape[0])
+        ver, n0 = svc.snapshot_version, len(tr.events)
+        t = time.perf_counter()
+        _launched(launches, svc.ingest, add_src=a_s, add_dst=a_d, add_w=a_w,
+                  del_src=d_s, del_dst=d_d)
+        _sync()
+        ingest_s.append(time.perf_counter() - t)
+        dur = {e["name"]: e["dur"] for e in tr.events[n0:] if e["ph"] == "X"
+               and e["name"] in ("serve.ingest", "stream.ingest")}
+        publish_s.append((dur["serve.ingest"] - dur["stream.ingest"]) / 1e6)
+        snap = pins[svc.snapshot_version] = svc.store.acquire()
+        if svc.snapshot_version != ver + 1 or not isinstance(
+                snap._cache.get("backend:stream"), StreamBackend):
+            raise AssertionError(f"churn: burst {burst} published no "
+                                 "O(delta) version")
+        for i in range(k):
+            kind = "sssp" if i % 2 == 0 else "pagerank"
+            root = int(rng.integers(0, v))
+            qroot[svc.submit(Query(kind, root=root))] = root
+        got, _ = _launched(launches, svc.drain)
+        if {r.snapshot_version for r in got} != {svc.snapshot_version}:
+            raise AssertionError("churn: a burst's answers span versions")
+        results.extend(got)
+    _sync()
+    total_s = time.perf_counter() - t_all
+    versions = sorted(pins)
+    checks = []
+    for ver in (versions[0], versions[-1]):
+        t = time.perf_counter()
+        snap = pins[ver]
+        if snap.materialized:
+            raise AssertionError(f"churn: version {ver} was materialized "
+                                 "before a reader forced it")
+        ga = apps.to_arrays(snap.graph, device=device)
+        mine = [r for r in results if r.snapshot_version == ver]
+        rs = next(r for r in mine if r.kind == "sssp")
+        d, _ = apps.sssp(ga, qroot[rs.qid])
+        if not np.array_equal(d.cpu().numpy(), rs.value):
+            raise AssertionError(f"churn: version {ver}'s SSSP answer "
+                                 "differs from a re-solve on flat")
+        rp = next(r for r in mine if r.kind == "pagerank")
+        p = torch.zeros((v, 1), dtype=torch.float32, device=device)
+        p[qroot[rp.qid], 0] = 1.0
+        want, _ = batched.batched_pagerank(ga, p, max_iters=15)
+        gap = _rank_gap(torch.from_numpy(rp.value), want[:, 0].cpu(),
+                        f"churn version {ver} PageRank")
+        checks.append(dict(version=ver, pagerank_gap=gap,
+                           seconds=time.perf_counter() - t))
+        del ga
+        log(f"  churn version {ver}: forced (O(E)); SSSP from "
+            f"{qroot[rs.qid]} bitwise equal to a re-solve on flat, PageRank "
+            f"from {qroot[rp.qid]} within {gap:.3g} of the band "
+            f"({checks[-1]['seconds']:.1f} s)")
+    for snap in pins.values():
+        svc.store.release(snap)
+    health = svc.health()
+    summ = svc.metrics.summary()
+    rec = dict(bursts=SERVE_CHURN_BURSTS, edges=SERVE_CHURN_EDGES,
+               queries=len(results), seconds=total_s,
+               qps=len(results) / total_s, ingest_s=ingest_s,
+               publish_s=publish_s, latency_p50_ms=summ["latency_p50_ms"],
+               latency_p99_ms=summ["latency_p99_ms"],
+               batch_ms_mean=summ["batch_ms_mean"], checks=checks,
+               versions=versions, health=health,
+               live_versions=svc.store.live_versions)
+    med = _median_span(ingest_s)
+    pub = _median_span(publish_s)
+    log(f"  churn: {SERVE_CHURN_BURSTS} bursts of {SERVE_CHURN_EDGES} edges "
+        f"+ {k} queries: {rec['queries']} queries in {total_s:.2f} s = "
+        f"{rec['qps']:.2f} QPS; ingest {med['median']:.3f} "
+        f"[{med['min']:.3f}-{med['max']:.3f}] s per burst (to the device's "
+        f"end), of which the O(delta) publish (the serve.ingest span less "
+        f"its stream.ingest, host) {pub['median']:.4f} "
+        f"[{pub['min']:.4f}-{pub['max']:.4f}] s; latency p50 "
+        f"{rec['latency_p50_ms']:.1f} ms, p99 {rec['latency_p99_ms']:.1f} "
+        f"ms; health {health['status']} {health['queue']} "
+        f"{health['snapshots']}")
+    return rec
+
+
+def time_plane(ga, ga_w, flat, k, device):
+    """K5 over a (V, ``k``) plane at the serving graph: one pull of
+    ``batched_pagerank``'s shape (``x`` = rand / out-degree) on ``ga``'s
+    tiles, from an idle device and on the device alone, beside ``k`` pulls
+    of one column each, cuSPARSE SpMM of the in-CSR by the plane, and the
+    bound (the real lanes' ids and ``deg`` once, the plane read once, ``y``
+    written once); checked against the plain version in the sum band and
+    twice bitwise.  Then one ``batched_sssp`` push step at width ``k`` on
+    ``ga_w`` (the frontier of its third iteration), timed the same way,
+    checked against ``flat`` (the serving graph's ``FlatBackend``, whose
+    in-CSR the library call reads too) bitwise and twice bitwise; it has no
+    library call."""
+    import torch
+
+    from repro_torch.serve import batched
+
+    v = ga.num_vertices
+    tiles = ga.in_tiles
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = (torch.rand(v, k, generator=gen, device=device)
+         / ga.out_deg.clamp(min=1)[:, None])
+    cols = [x[:, j].contiguous() for j in range(k)]
+
+    def pull(x):
+        return ga.pull(x, reduce="sum")
+
+    n0 = _ell_launches()
+    got = pull(x)
+    launches = _ell_launches() - n0
+    if not torch.equal(got, pull(x)):
+        raise AssertionError("the (V, K) pull differs between two calls")
+    want = torch.zeros_like(got)
+    for t in tiles:
+        want[t.rows] = _plain(x, t.idx, t.deg)[: t.num_rows]
+    err = _assert_close(got, want, "sum", f"(V, {k}) pull vs plain")
+    band = 2e-6 * (1.0 + float(want.abs().max()))
+    col_err = max(float((got[:, j] - pull(c)).abs().max())
+                  for j, c in enumerate(cols))
+    ms = _events_ms(lambda: pull(x), REPS)
+    device_ms = _events_ms(lambda: pull(x), REPS, device_only=True)
+    cols_ms = _events_ms(lambda: [pull(c) for c in cols], REPS)
+    cols_device_ms = _events_ms(lambda: [pull(c) for c in cols], REPS,
+                                device_only=True)
+    g = flat.ga
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(g.in_ptr, g.in_src,
+                                      torch.ones_like(g.in_w), size=(v, v),
+                                      check_invariants=False)
+        lib = csr @ x
+        lib_err = float((lib - got).abs().max())
+        library_ms = _events_ms(lambda: csr @ x, REPS)
+        library_device_ms = _events_ms(lambda: csr @ x, REPS, True)
+    edges = sum(int(t.deg.sum()) for t in tiles)
+    need = v * 4 * k + sum(int(t.deg.sum()) * t.idx.element_size()
+                           + t.num_rows * 4 * (1 + k) for t in tiles)
+    bound_bytes_ms = need / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = edges * k / FP32_OPS_PER_S * 1e3
+    rec = dict(k=k, backend=type(ga).__name__, launches=launches,
+               ms=ms, device_ms=device_ms, k1x8_ms=cols_ms,
+               k1x8_device_ms=cols_device_ms, library_ms=library_ms,
+               library_device_ms=library_device_ms,
+               library_max_abs_err=lib_err, column_max_abs_err=col_err,
+               bound_ms=max(bound_bytes_ms, bound_ops_ms),
+               bound_by=("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations"),
+               bound_bytes=need, max_abs_err=err, band=band,
+               plane_bytes=v * 4 * k)
+    log(f"  K5 over a (V, {k}) plane ({rec['backend']}, {len(tiles)} "
+        f"classes, {launches} launches): {ms:.4f} ms (device alone "
+        f"{device_ms:.4f}); {k} pulls of one column {cols_ms:.4f} ms "
+        f"(device alone {cols_device_ms:.4f}); cuSPARSE SpMM "
+        f"{library_ms:.4f} ms (device alone {library_device_ms:.4f}; max "
+        f"|d| {lib_err:.3g}); bound {rec['bound_ms']:.4f} ms ({need} B, "
+        f"the plane alone {v * 4 * k} B); max |err| vs plain {err:.3g} "
+        f"(band {band:.3g}), twice bitwise; columns vs the plane max |d| "
+        f"{col_err:.3g}")
+
+    # one batched_sssp push step at width k, the frontier of iteration 3
+    roots = torch.tensor(_serve_roots(v, "sssp", k), device=device)
+    d1, _ = batched.batched_sssp(ga_w, roots, max_iters=1)
+    d2, _ = batched.batched_sssp(ga_w, roots, max_iters=2)
+    frontier = d2 < d1
+    inf = float("inf")
+
+    def push(b):
+        return b.push(d2, reduce="min", src_frontier=frontier,
+                      use_weights=True, neutral=inf, init=d2)
+
+    n0 = _ell_launches()
+    got = push(ga_w)
+    push_launches = _ell_launches() - n0
+    if not (torch.equal(got, push(ga_w)) and torch.equal(got, push(flat))):
+        raise AssertionError("the (V, K) SSSP push differs between two calls "
+                             "or from flat (must be bitwise)")
+    tiles_w = ga_w.in_tiles
+    edges_w = sum(int(t.deg.sum()) for t in tiles_w)
+    need_w = v * k * 5 + sum(
+        int(t.deg.sum()) * (t.idx.element_size() + 4)
+        + t.num_rows * 4 * (1 + 2 * k) for t in tiles_w)
+    b_bytes = need_w / HBM_BYTES_PER_S * 1e3
+    b_ops = 2 * edges_w * k / FP32_OPS_PER_S * 1e3
+    rec["sssp_push"] = dict(
+        launches=push_launches, frontier_share=float(frontier.float().mean()),
+        ms=_events_ms(lambda: push(ga_w), REPS),
+        device_ms=_events_ms(lambda: push(ga_w), REPS, device_only=True),
+        plain_ms=_events_ms(lambda: push(flat), REPS),
+        bound_ms=max(b_bytes, b_ops),
+        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        bound_bytes=need_w, library_ms=None)
+    s = rec["sssp_push"]
+    log(f"  one batched_sssp push step at K={k} (frontier "
+        f"{s['frontier_share']:.4f} of the (V, K) slots, {push_launches} "
+        f"launches): {s['ms']:.4f} ms (device alone {s['device_ms']:.4f}); "
+        f"flat {s['plain_ms']:.4f} ms; bound {s['bound_ms']:.4f} ms "
+        f"({need_w} B); bitwise equal to flat and twice; no library call "
+        "computes it")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 12
 def _zipf_tokens(vocab_size, batch, seq_len):
     """(batch, seq_len) int32 ids of the port's ``ZipfPipeline`` (seed 0),
     remapped through DBG over the pipeline's own token frequencies, and the
@@ -2060,7 +2757,7 @@ def k2_grid(device):
     return cases, err
 
 
-# ---------------------------------------------------------------- phase 12
+# ---------------------------------------------------------------- phase 13
 def lm_parity(device):
     """Reduced Yi-9B (GQA) and OLMo-1B, the same weights on the CPU and the
     card: greedy tokens equal, every step's logits within rtol 1e-4, atol
@@ -2095,10 +2792,10 @@ def lm_parity(device):
     return worst
 
 
-# ---------------------------------------------------------------- phase 13
+# ---------------------------------------------------------------- phase 14
 def lm_serve(device):
     """Yi-9B at full width serves LM_BATCH requests through ``generate``.
-    Returns the model and what phase 14 and the ``kernels`` line need."""
+    Returns the model and what phase 15 and the ``kernels`` line need."""
     import statistics
 
     import torch
@@ -2226,7 +2923,7 @@ def profile_decode_step(model, tokens):
                 top=[(name[:90], n, ms) for name, (n, ms) in top[:8]])
 
 
-# ---------------------------------------------------------------- phase 14
+# ---------------------------------------------------------------- phase 15
 def _host_us(fn, n=1000):
     """Host microseconds per ``fn()`` over ``n`` calls issued with no sync
     between them: what the caller's thread spends to issue one call."""
@@ -2547,7 +3244,7 @@ def main() -> int:
         f"{hb['host_mapping_ms']:.2f} ms ({time.perf_counter() - t0:.1f} s)")
 
     pk_err = pk["max_err"]
-    deg_t, b_t = pk["deg_t"], pk["b_t"]  # phase 14 profiles dbg_bin on them
+    deg_t, b_t = pk["deg_t"], pk["b_t"]  # phase 15 profiles dbg_bin on them
     del pk
     gc.collect()
     torch.cuda.empty_cache()
@@ -2573,7 +3270,21 @@ def main() -> int:
         f"{st['peak_gib']:.2f} GiB ({st['seconds']:.1f} s)")
     log(json.dumps({"stream": st, "card": smi}))
 
-    # 11. K2 vs plain, once the graph state has left the card
+    # 11. the serving plane on phase 4's weighted DBG graph: tune on the
+    # card, serve version 0 through backend="auto" at every width, churn;
+    # the launch counts are read from zero inside (the serving drive)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sv = serving_plane(gw_dbg, dev)
+    serve_path = sv.pop("launches")
+    if serve_path["ell_edge_map"] == 0:
+        raise AssertionError("serve: K5 was never launched")
+    log(f"serving plane: launches {serve_path} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(json.dumps({"serve": sv, "card": smi}))
+
+    # 12. K2 vs plain, once the graph state has left the card
     del small_tiles, small, g, g_dbg, gw_dbg, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -2587,13 +3298,13 @@ def main() -> int:
         f"bitwise equal, max |err| {e9} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 12. the LM serving path at reduced size, card against CPU
+    # 13. the LM serving path at reduced size, card against CPU
     t0 = time.perf_counter()
     used = lm_parity(dev)
     log(f"LM parity, card vs CPU: worst logit gap {used:.3g} of the band "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 13. the LM serving path at full width; counts read from zero inside
+    # 14. the LM serving path at full width; counts read from zero inside
     t0 = time.perf_counter()
     model, served, lm = lm_serve(dev)
     prof = profile_decode_step(model, served)
@@ -2606,7 +3317,7 @@ def main() -> int:
     for kname, n, ms in prof["top"]:
         log(f"    {ms:9.3f} ms  {n:4d} x  {kname}")
 
-    # 14. K2's times
+    # 15. K2's times
     t0 = time.perf_counter()
     k2 = time_k2(model, served, REPS)
     for label, m in k2.items():
@@ -2624,7 +3335,7 @@ def main() -> int:
     # the device operations of what the serving loop passes to embed_lookup
     # (a prefill step's strided column of the prompt, a decode step's (B, 1)
     # greedy pick) and of hist_bin and dbg_bin at phase 8's call: all here,
-    # after phase 13's session, as this process's profiler reads reliably
+    # after phase 14's session, as this process's profiler reads reliably
     prefill, decode = served[:, 1:2], served[:, -1:].contiguous()
     with torch.no_grad():
         ops = _device_ops({
@@ -2650,7 +3361,8 @@ def main() -> int:
                     "k2": k2, "embed_lookup_launches": lookups}))
 
     timed = {
-        "ell_edge_map": dict(t, max_abs_err=max(e1, e2, t["max_abs_err"])),
+        "ell_edge_map": dict(t, max_abs_err=max(
+            e1, e2, t["max_abs_err"], sv["plane"]["max_abs_err"])),
         "hot_spmv": dict(k4, max_abs_err=max(err4, k4["max_abs_err"],
                                              pk_err["hot_spmv"])),
         "ell_spmv": dict(k1, max_abs_err=max(err1, k1["max_abs_err"],
@@ -2667,7 +3379,7 @@ def main() -> int:
     for kname, (_, source, replaces) in _wrappers().items():
         m = timed[kname]
         by_path = {"ell": ell_path[kname], "packed": packed[kname],
-                   "stream": stream_path[kname],
+                   "stream": stream_path[kname], "serve": serve_path[kname],
                    "lm_serve": lm["launches"][kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
@@ -2694,6 +3406,12 @@ def main() -> int:
                 "fused_ms", "fused_device_ms", "flat_ms", "flat_device_ms",
                 "bound_ms", "bound_by", "padded_bound_ms", "launches",
                 "max_abs_err", "band")}
+            entry["serve_plane"] = {k: sv["plane"][k] for k in (
+                "k", "backend", "ms", "device_ms", "k1x8_ms",
+                "k1x8_device_ms", "library_ms", "library_device_ms",
+                "bound_ms", "bound_by", "launches", "max_abs_err", "band",
+                "sssp_push")}
+            entry["serve_plane"]["launches_on_path"] = serve_path[kname]
         if "padded_ms" in m:  # K1 without the degrees: every lane
             entry["padded_ms"] = m["padded_ms"]
             entry["padded_bound_ms"] = m["padded_bound_ms"]

@@ -50,6 +50,7 @@ __all__ = [
     "EllBackend",
     "BACKENDS",
     "BACKEND_KNOBS",
+    "KNOB_SCOPES",
     "resolve_backend",
     "validate_knobs",
     "to_arrays",
@@ -331,6 +332,21 @@ def _build_packed(g: csr.Graph, *, device: torch.device, row_tile: int = 64,
                           device=device)
 
 
+def _build_auto(g: csr.Graph, *, device: torch.device,
+                app: Optional[str] = None, plan=None, **overrides):
+    """``backend="auto"``: resolve the tuned execution plan for ``g``
+    (``repro_torch.tune.plan``) and build the backend it names.  Explicit
+    kwargs override the plan; knobs the resolved backend does not consume
+    are dropped silently (the plan may carry ELL geometry while resolving a
+    graph to ``flat``)."""
+    from ..tune import plan as tune_plan
+
+    name, cfg = tune_plan.resolve_auto(g, app=app, plan=plan)
+    cfg.update({k: v for k, v in overrides.items() if v is not None})
+    accepted, _ignored = validate_knobs(name, cfg)
+    return resolve_backend(name)(g, device=device, **accepted)
+
+
 #: name -> builder(g, device=..., **knobs).  Extend this table rather than
 #: matching backend names elsewhere; ``BACKEND_KNOBS`` declares the knobs
 #: each builder consumes — keep the two tables in sync.
@@ -339,17 +355,35 @@ BACKENDS: Dict[str, Callable] = {
     "ell": _build_ell,        # fused K5 kernel over DBG-ELL tiles
     "packed": _build_packed,  # fused K5 kernel straight over pack.PackedGraph
     "arrays": _build_arrays,  # raw GraphArrays
+    "auto": _build_auto,      # plan-resolved (repro_torch.tune) backend
 }
 
-#: backend -> construction knobs its builder consumes.
+#: backend -> construction knobs its builder consumes: THE constraint table
+#: of the port (``repro_torch.tune.space`` re-exports it).  ``auto`` takes
+#: the union (the plan decides) plus its own resolution knobs (``app``,
+#: ``plan``).
 BACKEND_KNOBS: Dict[str, frozenset] = {
     "flat": frozenset(),
     "arrays": frozenset(),
     "ell": frozenset({"row_tile", "width_tile"}),
     "packed": frozenset({"row_tile", "width_tile", "slot_align",
                          "hot_groups"}),
+    "auto": frozenset({"row_tile", "width_tile", "slot_align", "hot_groups",
+                       "app", "plan"}),
 }
-_ALL_KNOBS = frozenset().union(*BACKEND_KNOBS.values())
+
+#: knob -> scope: ``engine`` knobs build backends, ``app`` knobs thread into
+#: the direction-optimizing app loops, ``stream`` knobs into StreamConfig
+#: (``repro_torch.tune.space`` re-exports it with ``BACKEND_KNOBS``).
+KNOB_SCOPES: Dict[str, str] = {
+    "backend": "engine",
+    "row_tile": "engine",
+    "width_tile": "engine",
+    "slot_align": "engine",
+    "hot_groups": "engine",
+    "density_threshold": "app",
+    "hysteresis": "stream",
+}
 
 
 def resolve_backend(name: str) -> Callable:
@@ -365,16 +399,18 @@ def resolve_backend(name: str) -> Callable:
 def validate_knobs(backend: str, knobs: Dict, *, strict: bool = False):
     """Partition ``knobs`` for ``backend``: returns ``(accepted, ignored)``.
 
-    Unknown knob names always raise ``ValueError`` (a typo must never be a
-    silent no-op); knobs that exist but are no-ops on this backend raise
-    when ``strict``, else are returned in ``ignored``."""
+    Unknown knob names (any outside ``KNOB_SCOPES``, ``app`` and ``plan``)
+    always raise ``ValueError`` (a typo must never be a silent no-op); knobs
+    that exist but are no-ops on this backend raise when ``strict``, else
+    are returned in ``ignored``."""
     resolve_backend(backend)
     allowed = BACKEND_KNOBS[backend]
+    known = set(KNOB_SCOPES) | {"app", "plan"}
     accepted, ignored = {}, {}
     for k, v in knobs.items():
-        if k not in _ALL_KNOBS:
+        if k not in known:
             raise ValueError(f"unknown backend knob {k!r}; known knobs: "
-                             f"{', '.join(sorted(_ALL_KNOBS))}")
+                             f"{', '.join(sorted(known))}")
         (accepted if k in allowed else ignored)[k] = v
     if ignored and strict:
         raise ValueError(
@@ -399,7 +435,10 @@ def to_arrays(
     and routes every edge map through the fused K5 kernel; ``"packed"``
     packs ``g`` into hot/cold storage (``slot_align``, ``hot_groups``; 0 =
     the layout's default) and runs K5 over it; ``"arrays"`` returns the raw
-    ``GraphArrays``.
+    ``GraphArrays``; ``"auto"`` resolves the active tuned execution plan
+    (``repro_torch.tune``; ``app`` picks its per-app entry, ``plan``
+    overrides the active one) — the hand-tuned default when there is no
+    plan — and builds the backend it names.
 
     Knobs are validated against ``BACKEND_KNOBS``: unknown names raise;
     knobs the chosen backend does not consume warn and are dropped, or

@@ -32,9 +32,10 @@ for a frontier pass; it never writes an operand, so instrumented runs are
 bitwise identical to uninstrumented ones, and an uninstalled hook costs one
 ``is not None`` check per dispatch.
 
-Not ported yet: the sharded engine's per-shard attribution (ROADMAP A11),
-and ``record_iters`` with the streaming and serving services that call it
-(A7, A8).
+``record_iters`` takes the true per-lane iteration counts from a loop's
+owner: the serving plane calls it after every query batch (A8); the
+sharded engine will call it too (A11).  Not ported yet: the sharded
+engine's per-shard attribution (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -116,6 +117,9 @@ class EdgeMapCounters:
       ``edge_map.model_bytes``                    modeled HBM bytes
       ``edge_map.frontier_density``               histogram, per frontier
                                                   pass (folded on read)
+      ``edge_map.iters.{app}``                    iterations, summed over
+                                                  lanes (``record_iters``)
+      ``edge_map.queries.{app}``                  lanes reported
 
     When tracing is on (or a flight ring is installed), every pass also
     emits a Chrome counter event (``ph == "C"``) named ``edge_map`` with
@@ -160,6 +164,14 @@ class EdgeMapCounters:
                 "edge_map", cat="engine",
                 edges=reg.counter("edge_map.edges").value,
                 model_bytes=reg.counter("edge_map.model_bytes").value)
+
+    # -- loop-owner reporting ------------------------------------------------
+    def record_iters(self, app: str, iters: Any) -> None:
+        """Report true iteration counts for a loop (``iters`` is the scalar
+        or (K,) per-lane count the apps return)."""
+        arr = np.atleast_1d(np.asarray(iters))
+        self.registry.counter(f"edge_map.iters.{app}").inc(int(arr.sum()))
+        self.registry.counter(f"edge_map.queries.{app}").inc(int(arr.size))
 
     def summary(self, prefix: str = "edge_map.") -> Dict[str, float]:
         """The counter columns, densities folded."""

@@ -1,0 +1,73 @@
+"""Hardware roofline profiles for the port's cost model.
+
+Port of ``repro.roofline.analysis``'s ``HW`` and ``HW_PROFILES``: the
+profile ``repro_torch.tune.cost`` prices every candidate through.  The
+reference's profiles are a TPU v5e and the Pallas interpreter on a host
+CPU; neither describes the port's device, so neither is copied.  The port
+has one profile, ``"h100"``, whose numbers ``chip_smoke.py``
+(``measure_hw``) measured on the card:
+
+  * ``hbm_bw`` — a timed device-to-device copy of 2 GiB (read + write bytes
+    over the copy's time);
+  * ``peak_flops`` — a timed float32 ``torch.matmul`` of 8192 x 8192 x
+    8192 with TF32 off (the float32 pipes outside the tensor cores, the
+    type the edge maps compute in);
+  * ``dispatch_overhead`` — 0: the reference prices one Pallas grid step
+    of the interpreter; the port's kernels launch once per tile class, not
+    once per grid step, so no configuration of the space changes how many
+    launches one pass makes per grid step;
+  * ``link_bw`` — infinite: one card prices no collective (the sharded
+    engine, ROADMAP A11, has not been ported).
+
+The XLA dry-run parsers (``parse_hlo_costs``, ``parse_collective_bytes``),
+``model_flops`` and ``roofline_terms`` read compiled XLA artifacts and wait
+for the sharded LM (ROADMAP A12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+__all__ = ["HW", "HW_PROFILES"]
+
+
+@dataclasses.dataclass(frozen=True)
+class HW:
+    """A hardware roofline profile (the reference's fields).
+
+    ``HW.profile()`` is ``"h100"``, the one profile (no environment
+    variable chooses it until a second one exists).
+    ``dispatch_overhead`` is a fixed cost per kernel grid step, charged by
+    ``tune.cost.app_seconds`` when it is not 0.
+    """
+
+    peak_flops: float   # operations/s of the priced type
+    hbm_bw: float       # bytes/s
+    link_bw: float      # bytes/s per link
+    dispatch_overhead: float = 0.0  # s per kernel grid step
+    name: str = ""
+
+    @classmethod
+    def profile(cls, name: Optional[str] = None) -> "HW":
+        """Look up a named profile; ``None`` is ``"h100"``.  Unknown names
+        raise with the known list."""
+        if name is None:
+            name = "h100"
+        try:
+            return HW_PROFILES[name]
+        except KeyError:
+            raise ValueError(
+                f"unknown hardware profile {name!r}; known profiles: "
+                f"{', '.join(sorted(HW_PROFILES))}") from None
+
+
+#: name -> profile.  ``h100``: NVIDIA H100 80GB HBM3 at a 700.00 W power
+#: limit, measured by ``chip_smoke.measure_hw``: the 2 GiB copy in 1.420 ms
+#: (3.0248e12 B/s, 90% of the data sheet's 3.35e12) and the float32 matmul
+#: in 21.515 ms (51.104e12 operations/s, 76% of its 67e12); PERF.md, the
+#: serving cell.
+HW_PROFILES: Dict[str, HW] = {
+    "h100": HW(peak_flops=51.104e12, hbm_bw=3.0248e12, link_bw=math.inf,
+               dispatch_overhead=0.0, name="h100"),
+}

@@ -8,7 +8,9 @@ against the CPU, the wrappers raising rather than falling back, the
 edge-map counters' ``on_pass`` making no device synchronization, and the
 streaming plane: K5 over the stream's tiles (alive planes, a ``coo_tiles``
 delta tile), the unfused stream push without float atomics, and the
-incremental consumers against the CPU.
+incremental consumers against the CPU; the serving plane: the batched apps
+on ``ell`` and ``packed``, ``GraphServeService`` and the tuner's sweep on
+the card against the CPU, and the sweep raising when a kernel fails.
 
 Run on a machine with an NVIDIA card and ``nvcc``:
 
@@ -861,3 +863,139 @@ def test_incremental_consumers_on_the_card_match_the_cpu(cuda):
         np.testing.assert_array_equal(got[1], want[0])
         for g, w in zip(got[2:], want[2:]):  # each path against its twin
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("backend,k", list(itertools.product(
+    ("ell", "packed"), (1, 3, 8))))
+def test_batched_apps_on_the_card_match_the_cpu(cuda, backend, k):
+    """``batched_sssp`` bitwise (iterations equal) and ``batched_pagerank``
+    within the reference's 1e-6 at test scale (iterations within 1) on the
+    card against the CPU; two card runs bitwise (no float atomics)."""
+    from repro_torch.apps import to_arrays
+    from repro_torch.serve import batched_pagerank, batched_sssp
+
+    g = _graph()
+    v = g.num_vertices
+    rng = np.random.default_rng(k)
+    roots = rng.integers(0, v, k)
+    p = np.zeros((v, k), np.float32)
+    for i, r in enumerate(roots):
+        if i % 2:
+            p[r, i] = 1.0
+        else:
+            p[:, i] = 1.0 / v
+    out = []  # two card runs, then one on the CPU
+    for dev in (cuda, cuda, torch.device("cpu")):
+        ga = to_arrays(g, backend=backend, device=dev)
+        run = (batched_sssp(ga, torch.from_numpy(roots).to(dev)),
+               batched_pagerank(ga, torch.from_numpy(p).to(dev)))
+        out.append([(a.cpu(), b.cpu()) for a, b in run])
+    (d, di), (r, ri) = out[0]
+    (d2, di2), (r2, ri2) = out[1]
+    assert torch.equal(d, d2) and torch.equal(r, r2)
+    assert torch.equal(di, di2) and torch.equal(ri, ri2)
+    (cd, cdi), (cr, cri) = out[2]
+    assert torch.equal(d, cd) and torch.equal(di, cdi)
+    np.testing.assert_allclose(r.numpy(), cr.numpy(), rtol=0, atol=1e-6)
+    assert int((ri - cri).abs().max()) <= 1
+
+
+def test_serving_service_on_the_card_matches_the_cpu(cuda):
+    """``GraphServeService(backend="auto")`` on the card: version 0 through
+    the default plan (``ell``, K5), then two churned O(delta) versions on
+    the stream backend, each answer equal to the CPU service's (SSSP
+    bitwise, PageRank in the band) and isolated: a pinned version re-solved
+    from scratch on ``flat`` gives the same SSSP answer."""
+    from repro_torch.apps import sssp, to_arrays
+    from repro_torch.graph import datasets
+    from repro_torch.kernels.edge_map import ell_edge_map
+    from repro_torch.serve import GraphServeService, Query, ServeConfig
+    from repro_torch.tune import plan
+
+    g = datasets.load_weighted("lj", "test", seed=1)
+    v = g.num_vertices
+    prev = plan.set_active_plan(None)
+    try:
+        svcs = [GraphServeService(g, ServeConfig(
+            backend="auto", max_width=4, incremental_publish=True),
+            device=dev) for dev in (cuda, torch.device("cpu"))]
+        rng = np.random.default_rng(6)
+        answers = [[], []]
+        pins = []
+        for step in range(3):
+            roots = rng.integers(0, v, 3)
+            if step:
+                es, ed, _ = svcs[1].stream.dg.alive_edges()
+                kill = rng.choice(es.shape[0], 40, replace=False)
+                batch = dict(add_src=rng.integers(0, v, 120),
+                             add_dst=rng.integers(0, v, 120),
+                             add_w=rng.uniform(1, 16, 120).astype(np.float32),
+                             del_src=es[kill], del_dst=ed[kill])
+            for i, svc in enumerate(svcs):
+                if step:
+                    svc.ingest(**batch)
+                for r in roots:
+                    svc.submit(Query("sssp", root=int(r)))
+                    svc.submit(Query("pagerank", root=int(r)))
+                n0 = ell_edge_map.launches
+                answers[i].extend(svc.drain())
+                if step == 0 and i == 0:
+                    assert ell_edge_map.launches > n0  # v0 rode K5
+            pins.append(svcs[0].store.acquire())
+        for a, b in zip(*answers):
+            assert (a.qid, a.kind, a.snapshot_version) == \
+                (b.qid, b.kind, b.snapshot_version)
+            if a.kind == "sssp":
+                np.testing.assert_array_equal(a.value, b.value)
+                assert a.iters == b.iters
+            else:
+                np.testing.assert_allclose(a.value, b.value, atol=1e-6)
+        assert {a.snapshot_version for a in answers[0]} == {0, 1, 2}
+        for snap in pins[1:]:
+            ga = to_arrays(snap.graph, device=cuda)
+            a = next(x for x in answers[0] if x.kind == "sssp"
+                     and x.snapshot_version == snap.version)
+            root = int(np.flatnonzero(a.value == 0.0)[0])
+            d, _ = sssp(ga, root)
+            np.testing.assert_array_equal(d.cpu().numpy(), a.value)
+        for snap in pins:
+            svcs[0].store.release(snap)
+    finally:
+        plan.set_active_plan(prev)
+
+
+def test_sweep_on_the_card_selects_as_the_cpu(cuda):
+    """``sweep(select="bytes")``: the same trials and the same choice on the
+    card as on the CPU (the choice is by modeled bytes)."""
+    from repro_torch.graph import datasets
+    from repro_torch.tune import search
+
+    g = datasets.load("kr", "test")
+    res = [search.sweep(g, app=app, top_k=3, extras=1, reps_schedule=(1, 1),
+                        select="bytes", device=dev)
+           for dev in (cuda, "cpu") for app in ("pr", "sssp")]
+    for card, cpu in ((res[0], res[2]), (res[1], res[3])):
+        assert card.chosen == cpu.chosen
+        assert [t.config for t in card.trials] == \
+            [t.config for t in cpu.trials]
+        assert all(t.error is None for t in card.trials)
+
+
+def test_sweep_on_the_card_raises_when_a_kernel_fails(cuda, monkeypatch):
+    """A K5 build that fails on the card propagates out of ``sweep``: the
+    plan never falls back to ``flat`` around a broken kernel."""
+    import importlib
+
+    from repro_torch.graph import datasets
+    from repro_torch.tune import search
+
+    k5 = importlib.import_module("repro_torch.kernels.edge_map.edge_map")
+
+    def fail():
+        raise RuntimeError("nvcc failed: a build that does not compile")
+
+    monkeypatch.setattr(k5, "load_kernels", fail)
+    g = datasets.load("kr", "test")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        search.sweep(g, app="pr", top_k=3, extras=1, reps_schedule=(1,),
+                     device=cuda)

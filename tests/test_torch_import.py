@@ -57,7 +57,8 @@ def _imported_names(path: Path):
 def test_the_source_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in SOURCES if PORT in p.parents}
     for pkg in ("apps", "cachesim", "configs", "core", "data", "graph",
-                "kernels", "launch", "lm", "obs", "pack", "stream"):
+                "kernels", "launch", "lm", "obs", "pack", "roofline",
+                "serve", "stream", "tune"):
         assert pkg in scanned
     assert ROOT / "chip_smoke.py" in SOURCES
 
@@ -84,6 +85,29 @@ def test_to_arrays_defaults_to_cuda_and_raises_without_it(monkeypatch):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert to_arrays(g, device="cpu").in_deg.device.type == "cpu"
+
+
+def test_serve_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.graph import datasets
+    from repro_torch.serve import GraphServeService, Query, ServeConfig
+    from repro_torch.tune import plan, search
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = datasets.load("kr", "test")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphServeService(g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphServeService(g, ServeConfig(backend="auto"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search.measure(g, {"backend": "flat"})
+    prev = plan.set_active_plan(None)
+    try:
+        svc = GraphServeService(g, ServeConfig(backend="auto"), device="cpu")
+        svc.submit(Query("sssp", root=0))
+        (res,) = svc.drain()
+    finally:
+        plan.set_active_plan(prev)
+    assert svc.device.type == "cpu" and res.value.shape == (g.num_vertices,)
 
 
 def test_quickstart_defaults_to_cuda_and_raises_without_it(monkeypatch):
