@@ -143,36 +143,60 @@ Phases (any failure raises, and the script exits non-zero):
      idle device and on the device alone, beside 8 pulls of one column,
      cuSPARSE SpMM and the bound, and one ``batched_sssp`` push step at
      K = 8; it prints a ``serve`` JSON line;
- 12. (the graph state freed) K2 vs its plain version on the card, bitwise:
+ 12. the sharded engine (``repro_torch.dist``) on a one-rank NCCL group
+     over phase 4's weighted DBG graph: ``pagerank_dist`` on ``ell`` /
+     ``replicate_hot`` (its layout built on the host, its shard uploaded)
+     against phase 4's single-device ``ell`` PageRank (within 1.1e-7, and
+     in phase 4's band), its layout's pull and push (sum/min/max, weights
+     on and off) against the single-device engine (min/max bitwise, sums
+     in the band), ``sssp_sharded_stream`` bitwise against ``apps.sssp``,
+     and a ``ShardedStreamService`` on the registry's ``kr`` at
+     ``DIST_STREAM_SCALE`` beside the single-device service over
+     ``DIST_STREAM_BATCHES`` ``ChurnStream`` batches (seed 3) of
+     ``DIST_STREAM_EDGES`` edges (SSSP bitwise from three roots per batch,
+     PageRank within 2e-8 of a full single-device solve of the snapshot
+     and 1e-5 of the service's incremental one, the regroups routed through
+     ``apply_remaps_to``); K5's launches on the path, counted from zero over
+     the sharded calls alone, must be positive; then K5 over every shard's
+     pull and push tiles of the ``DIST_K5_SHARDS``-shard layout (each table
+     built from the global vector, as the exchange delivers it) against its
+     plain version, hub-class sums twice bitwise; per-shard edges, halo and
+     hot sizes of both policies at ``DIST_SHARDS`` with ``shard_graph``'s
+     host seconds (those layouts are built in a thread beside phases 3-11);
+     the sharded pull from an idle device and on the device alone beside
+     the single-device pull, and the sharded PageRank's warm median beside
+     the single-device one; it prints a ``dist`` JSON line;
+ 13. (the graph state freed) K2 vs its plain version on the card, bitwise:
      ``hot_gather`` and the split gather, float32 and bfloat16, at reduced
      widths, at Yi-9B's (H 8192, C 57,344, D 4096) on 8,192 DBG-remapped
      Zipf ids, and at a T that is not a multiple of 32; all-hot and
      all-cold batches, int64 and strided ids too;
- 13. the LM serving path at reduced size, card against CPU: reduced Yi-9B
+ 14. the LM serving path at reduced size, card against CPU: reduced Yi-9B
      (GQA) and reduced OLMo-1B, same weights, ``generate`` (batch 2, prompt
      8, 8 new): logits of every step within rtol 1e-4, atol 1e-5, tokens
      equal;
- 14. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
+ 15. the LM serving path at full width: Yi-9B (48 layers, d_model 4096,
      float32, random weights from a seeded generator on the card) serves 4
      requests of 32 Zipf prompt tokens (DBG vocabulary) + 32 greedy tokens;
      K2 must launch once per ``decode_step`` (64), every token lies in the
      vocabulary, the last logits are finite, and the split gather of the
      served ids equals its plain version bitwise;
- 15. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
+ 16. K2's times at the decode call (T = 4) and at T = 8,192 Zipf ids, beside
      the plain version, ``F.embedding`` over the joined table and the
      bound, from an idle device and on the device alone; the wrapper's host
      time per call; and, under ``torch.profiler``, the device operations
      of one ``embed_lookup`` at a prefill and at a decode step (1 each) and
      of one hist_bin (1) and one dbg_bin call (2) at phase 8's call, read
-     together here: in runs that first profiled in phase 8, phase 15's
+     together here: in runs that first profiled in phase 8, phase 16's
      profile of the prefill lookup held no device event.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
 device and ``device_ms`` on the device alone, its library call's
 ``library_ms`` and ``library_device_ms``, its worst error against the plain
 version ``max_abs_err``, the TPU kernel it replaces ``replaces``, its
-launches on each path ``launches_by_path``, ``stream`` and ``serve`` among
-them; K5's ``stream_push`` times one push over the stream's tiles, its
+launches on each path ``launches_by_path``, ``stream``, ``serve`` and
+``dist`` among them; K5's ``dist`` times the sharded pull beside the
+single-device one; K5's ``stream_push`` times one push over the stream's tiles, its
 ``bound_ms`` over the real lanes and ``padded_bound_ms`` over the planes,
 and its ``serve_plane`` one pull over the serving graph's (V, 8) plane
 beside 8 one-column pulls, cuSPARSE SpMM and the bound, with one
@@ -188,7 +212,9 @@ stable mapping) and, as its last line,
 """
 from __future__ import annotations
 
+import itertools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -223,23 +249,35 @@ EVAL_TRACED = "sort"       # phase 9 traces this ordering's build and a PageRank
 # must stay inside its time limit; for the same reason each series runs 6
 # batches, not the 10 of PR 18 (phase 11 came after it)
 STREAM_SIZES = (1024, 4096)       # edges per batch, one series each
-STREAM_BATCHES = 6                # batches per series, all on one service
+STREAM_BATCHES = 4                # batches per series, all on one service
 STREAM_INSERT_FRAC = 0.75
 # the incremental_dbg policy (regroup every batch) with the fused PageRank
-# push; the threshold puts exactly the final batch over it: 26,624 edges of
-# churn before it, 30,720 with it, against 0.0007 x 41,943,040 = 29,360.1
+# push; the threshold puts exactly the final batch over it: 16,384 edges of
+# churn before it, 20,480 with it, against 0.00045 x 41,943,040 = 18,874.4
 STREAM_CONFIG = dict(pr_fused_push=True, regroup_every=1,
-                     compact_threshold=0.0007)
+                     compact_threshold=0.00045)
 # then one batch of inserts alone: the incremental SSSP relaxation
 STREAM_INSERT_ONLY = 4096
 # phase 11: the serving plane (the reference's serve_qps workload on
 # benchmarks/serve_qps.py's settings, its churn apart), tuned on the card
 TUNE_SCALE = "large"               # the registry kr the tuner sweeps
 SERVE_WIDTHS = (1, 2, 4, 8)        # K: lanes per batch
-SERVE_QUERIES = 160                # queries per width (K = 8: 20 batches)
-SERVE_CHURN_BURSTS = 8             # then churn: bursts of ingest + queries
+SERVE_QUERIES = 96                 # queries per width (K = 8: 12 batches)
+SERVE_CHURN_BURSTS = 5             # then churn: bursts of ingest + queries
 SERVE_CHURN_EDGES = 1024           # edges per churn batch
 HW_COPY_BYTES = 2 << 30            # the timed copy behind the H100 profile
+# phase 12: the sharded engine on one NCCL rank
+DIST_SHARDS = (2, 4, 8)            # per-shard halo and hot sizes, both policies
+DIST_K5_SHARDS = 4                 # K5 vs plain over every shard's tiles
+DIST_STREAM_SCALE = "large"        # the sharded stream's kr (200,000 vertices)
+DIST_STREAM_BATCHES = 4            # ChurnStream batches (seed 3)
+DIST_STREAM_EDGES = 1024           # edges per batch
+DIST_PR_ATOL = 1.1e-7              # sharded PageRank vs the single-device one
+# the sharded stream's full solve (L-inf tol 1e-9) against a full
+# single-device solve of the service's snapshot; against the service's
+# incremental PageRank, phase 10's band of incremental vs full (1e-5)
+STREAM_PR_ATOL = 2e-8
+STREAM_SERVICE_ATOL = 1e-5
 HW_MATMUL_N = 8192                 # the timed float32 matmul, n^3
 STREAM_KEYS = ("ingest_s", "edges_per_s", "apply_s", "folds_s", "regroup_s",
                "moved", "extra_folds_s", "ingest_total_s", "tiles_s",
@@ -355,8 +393,6 @@ def variant_grid(tiles, num_vertices, device, seed):
     every tile class (a wide class through its segment list); every sum on a
     wide class twice, bitwise.  Returns (variants checked, max |err| of the
     sums, sums checked twice)."""
-    import itertools
-
     import torch
 
     from repro_torch.kernels.edge_map import ell_edge_map
@@ -2688,6 +2724,274 @@ def time_plane(ga, ga_w, flat, k, device):
 
 
 # ---------------------------------------------------------------- phase 12
+def _shard_sizes(sg):
+    """Per shard of a layout, from its planes alone: edges held, halo
+    entries it receives (the distinct halo slots its edges read), hot
+    vertices it owns (its share of the hot panel's all-gather); and the
+    layout's totals."""
+    import numpy as np
+
+    first_halo = sg.v_blk + sg.hot_cap
+    hot_owner = sg.hot_ids[: sg.stats["n_hot"]].astype(np.int64) // sg.v_blk
+    per = []
+    for i in range(sg.n_shards):
+        slots = sg.in_slot[i][sg.in_mask[i]]
+        per.append(dict(
+            edges=int(slots.shape[0]),
+            halo=int(np.unique(slots[slots >= first_halo]).shape[0]),
+            hot_owned=int((hot_owner == i).sum())))
+    return dict(per_shard=per, n_hot=sg.stats["n_hot"],
+                hot_frac=sg.stats["hot_frac"],
+                halo_slots=sg.stats["halo_slots"],
+                halo_max=sg.stats["halo_max"],
+                halo_bytes_padded=sg.stats["halo_bytes_padded"])
+
+
+def dist_layouts(gw):
+    """Phase 12's host layouts of ``gw`` (phase 4's weighted DBG graph),
+    built in a thread beside phases 3-11: for ``DIST_SHARDS`` x both
+    policies, ``shard_graph``'s host seconds and the per-shard sizes; the
+    ``DIST_K5_SHARDS`` replicate_hot layout on ``ell`` is kept for K5's
+    check, the others (``flat``, no remap bookkeeping) only measured."""
+    from repro_torch.apps import engine
+    from repro_torch.dist import graph as dg
+
+    ga = engine.to_arrays(gw, backend="arrays", device="cpu")
+    out = {"seconds": {}, "sizes": {}}
+    for d in DIST_SHARDS:
+        for policy in ("replicate_hot", "partition"):
+            keep = d == DIST_K5_SHARDS and policy == "replicate_hot"
+            t = time.perf_counter()
+            sg = dg.shard_graph(ga, d, policy=policy,
+                                backend="ell" if keep else "flat",
+                                track_remap=False)
+            out["seconds"][f"{d}/{policy}"] = time.perf_counter() - t
+            out["sizes"][f"{d}/{policy}"] = _shard_sizes(sg)
+            if keep:
+                out["sg"] = sg
+    return out
+
+
+def _k5_shard_grid(sg, x, device):
+    """K5 against its plain version over every class of every shard's pull
+    and push tiles of ``sg`` (unweighted and weighted, sum/min/max), each
+    pull table built from the global ``x`` as the exchange delivers it;
+    every sum on a class wider than 1,024 lanes twice, bitwise.  Returns
+    (calls checked, max |err| of the sums, sums checked twice)."""
+    import torch
+
+    from repro_torch.dist.graph import exchange_table
+    from repro_torch.kernels.edge_map import ell_edge_map
+    from repro_torch.kernels.edge_map.ops import _tile_of
+
+    n, max_err, twice = 0, 0.0, 0
+    for i in range(sg.n_shards):
+        table = exchange_table(sg, x, i)
+        for side, tiles, xs in (("pull", sg.pull_tiles, table),
+                                ("push", sg.push_tiles, table[: sg.v_blk])):
+            for c, st in enumerate(tiles):
+                t = st.shard(i, device)
+                r, w = t.idx.shape
+                geo = dict(row_tile=_tile_of(r, sg.row_tile),
+                           width_tile=_tile_of(w, sg.width_tile))
+                for red, weighted in itertools.product(
+                        ("sum", "min", "max"), (False, True)):
+                    kw = dict(reduce=red, w=t.w if weighted else None,
+                              unit_weights=weighted,
+                              neutral={"sum": 0.0, "min": float("inf"),
+                                       "max": float("-inf")}[red])
+                    got = ell_edge_map(xs, t.idx, t.deg, segments=t.segments,
+                                       **geo, **kw)
+                    what = f"shard {i} {side} class {c} ({r}, {w}) {red}"
+                    if red == "sum" and t.segments is not None:
+                        again = ell_edge_map(xs, t.idx, t.deg,
+                                             segments=t.segments, **geo, **kw)
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{what}: two calls differ")
+                        twice += 1
+                    max_err = max(max_err, _assert_close(
+                        got, _plain(xs, t.idx, t.deg, **kw), red, what))
+                    n += 1
+                del t
+    _sync()
+    return n, max_err, twice
+
+
+def _dist_stream(mesh, device, acc):
+    """The sharded stream on one rank: a ``ShardedStreamService`` and the
+    single-device ``StreamService`` on the registry's ``kr`` at
+    ``DIST_STREAM_SCALE`` (weighted), the same ``ChurnStream`` batches (seed
+    3) into both; after each, SSSP from three roots bitwise, PageRank
+    within ``STREAM_PR_ATOL`` of a full single-device solve of the
+    service's snapshot (``apps.pagerank`` on ``flat``, L1 tol 1e-9) and
+    within ``STREAM_SERVICE_ATOL`` of the service's incremental PageRank.
+    The sharded service's calls add their launches into ``acc``."""
+    import numpy as np
+
+    from repro_torch import apps
+    from repro_torch.graph import datasets
+    from repro_torch.stream import StreamConfig, StreamService
+    from repro_torch.stream.sharded import ShardedStreamService
+
+    t0 = time.perf_counter()
+    g = datasets.load_weighted("kr", DIST_STREAM_SCALE)
+    # no hysteresis: the regroups move vertices, so apply_remaps_to patches
+    cfg = StreamConfig(regroup_every=1, hysteresis=0.0)
+    single = StreamService(g, cfg, device=device)
+    sh, _ = _launched(acc, ShardedStreamService, g, cfg, mesh=mesh,
+                      backend="ell")
+    rec = dict(vertices=g.num_vertices, edges=g.num_edges,
+               batches=DIST_STREAM_BATCHES, edges_per_batch=DIST_STREAM_EDGES,
+               build_s=time.perf_counter() - t0, ingest_s=[], pr_gap=[],
+               pr_service_gap=[], sssp_roots=0)
+    churn = ChurnStream(g, seed=3)
+    roots = np.random.default_rng(3).integers(0, g.num_vertices,
+                                              3 * DIST_STREAM_BATCHES)
+    for b in range(DIST_STREAM_BATCHES):
+        a_s, a_d, d_s, d_d = churn.next_batch(single.dg, DIST_STREAM_EDGES)
+        kw = dict(add_src=a_s, add_dst=a_d, add_w=churn.weights(len(a_s)),
+                  del_src=d_s, del_dst=d_d)
+        single.ingest(**kw)
+        _sync()
+        t = time.perf_counter()
+        _launched(acc, sh.ingest, **kw)
+        _sync()
+        rec["ingest_s"].append(time.perf_counter() - t)
+        for root in roots[3 * b: 3 * b + 3].tolist():
+            got, _ = _launched(acc, sh.sssp, root)
+            if not np.array_equal(got, single.sssp(root)):
+                raise AssertionError(f"sharded stream batch {b}: SSSP from "
+                                     f"{root} differs (must be bitwise)")
+            rec["sssp_roots"] += 1
+        pr, _ = _launched(acc, sh.pagerank)
+        full, _ = apps.pagerank(apps.to_arrays(single.snapshot(),
+                                               backend="flat", device=device),
+                                tol=1e-9, max_iters=4096)
+        gap = float(np.abs(pr - full.cpu().numpy()).max())
+        to_service = float(np.abs(pr - single.pagerank()).max())
+        if not (gap <= STREAM_PR_ATOL and to_service <= STREAM_SERVICE_ATOL):
+            raise AssertionError(
+                f"sharded stream batch {b}: PageRank {gap} from a full solve "
+                f"(band {STREAM_PR_ATOL}), {to_service} from the service "
+                f"(band {STREAM_SERVICE_ATOL})")
+        rec["pr_gap"].append(gap)
+        rec["pr_service_gap"].append(to_service)
+    h = sh.health()["shard_ingest"]
+    rec.update(full_rebuilds=sh.full_rebuilds,
+               moved=int(sum(d.num_moved for d in sh.remap_deltas)),
+               remap_deltas=len(sh.remap_deltas),
+               folds=sum(len(x["compacted"]) for x in sh.shard_history),
+               halo_slots=h["halo_slots"],
+               delta_capacity=h["delta_capacity"])
+    return rec
+
+
+def dist_plane(gw, ell_w, prep, device):
+    """Phase 12: the sharded engine on a one-rank NCCL group over phase 4's
+    weighted DBG graph (``gw``; ``ell_w`` is phase 4's single-device ``ell``
+    backend of it): ``pagerank_dist`` on ``ell`` / ``replicate_hot`` and
+    its layout's pull and push against the single-device engine, sharded
+    SSSP, the sharded stream, with K5's launches on the path counted from
+    zero; then K5 over every shard's tiles of the ``DIST_K5_SHARDS`` layout
+    (``prep``, built in a thread) against its plain version, and the
+    sharded pull and PageRank timed beside the single-device ones."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import apps
+    from repro_torch.apps.pagerank_dist import pagerank_dist
+    from repro_torch.dist import graph as dg
+    from repro_torch.dist import stream as ds
+
+    t_phase = time.perf_counter()
+    out = {"shards": 1, "policy": "replicate_hot", "backend": "ell"}
+    (ROOT / "build").mkdir(exist_ok=True)
+    rendezvous = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    tdist.init_process_group("nccl", init_method=f"file://{rendezvous}/pg",
+                             rank=0, world_size=1)
+    try:
+        mesh = dg.make_graph_mesh(1)
+        v = gw.num_vertices
+        x = torch.rand(v, generator=torch.Generator(device=device)
+                       .manual_seed(12), device=device)
+        acc = {}
+        t0 = time.perf_counter()
+        (ranks, iters, sg), _ = _launched(
+            acc, pagerank_dist, apps.to_arrays(gw, backend="arrays",
+                                               device="cpu"),
+            mesh=mesh, backend="ell", policy="replicate_hot")
+        _sync()
+        out["pagerank_dist_s"] = time.perf_counter() - t0
+        pr_ref, pr_iters = apps.pagerank(ell_w)
+        gap = float((ranks - pr_ref).abs().max())
+        used = _rank_gap(ranks, pr_ref, "pagerank_dist")
+        if not gap <= DIST_PR_ATOL or abs(iters - pr_iters) > 1:
+            raise AssertionError(f"pagerank_dist: max gap {gap} (band "
+                                 f"{DIST_PR_ATOL}), iterations {iters} vs "
+                                 f"{pr_iters}")
+        out.update(pagerank_iters=iters, pagerank_ref_iters=pr_iters,
+                   pagerank_gap=gap, pagerank_band_used=used,
+                   layout_stats=sg.stats)
+        checks = []
+        for mode, red, uw in itertools.product(
+                ("pull", "push"), ("sum", "min", "max"), (False, True)):
+            fn = (dg.edge_map_pull_sharded if mode == "pull"
+                  else dg.edge_map_push_sharded)
+            got, _ = _launched(acc, fn, sg, x, mesh, reduce=red,
+                               use_weights=uw)
+            want = (apps.edge_map_pull if mode == "pull"
+                    else apps.edge_map_push)(ell_w, x, reduce=red,
+                                             use_weights=uw)
+            checks.append(_assert_close(got, want, red,
+                                        f"sharded {mode} {red} w={uw}"))
+        out["map_max_abs_err"] = max(checks)
+        (dist, s_iters), _ = _launched(acc, ds.sssp_sharded_stream, sg, 0,
+                                       mesh)
+        want, w_iters = apps.sssp(ell_w, 0)
+        if not np.array_equal(dist, want.cpu().numpy()):
+            raise AssertionError("sharded SSSP differs from phase 4's "
+                                 "(must be bitwise)")
+        out.update(sssp_iters=s_iters, sssp_ref_iters=w_iters)
+        t0 = time.perf_counter()
+        out["stream"] = _dist_stream(mesh, device, acc)
+        out["stream"]["seconds"] = time.perf_counter() - t0
+        out["launches"] = dict(acc)
+        if acc.get("ell_edge_map", 0) == 0:
+            raise AssertionError("dist: K5 was never launched")
+
+        # K5 over every shard's tiles of the 4-shard layout (not counted)
+        t0 = time.perf_counter()
+        n, err, twice = _k5_shard_grid(prep["sg"], x, device)
+        if twice == 0:
+            raise AssertionError(f"the {DIST_K5_SHARDS}-shard layout has no "
+                                 "class wider than 1,024 lanes to check twice")
+        out["k5_shards"] = dict(shards=DIST_K5_SHARDS, calls=n,
+                                max_abs_err=err, hub_sums_twice=twice,
+                                seconds=time.perf_counter() - t0)
+        out["host_layout_s"] = prep["seconds"]
+        out["sizes"] = prep["sizes"]
+
+        # times: the sharded pull and PageRank beside the single-device ones
+        pull = lambda: dg.edge_map_pull_sharded(sg, x, mesh)  # noqa: E731
+        single = lambda: apps.edge_map_pull(ell_w, x)  # noqa: E731
+        out["pull"] = dict(
+            ms=_events_ms(pull, REPS), device_ms=_events_ms(pull, REPS, True),
+            single_ms=_events_ms(single, REPS),
+            single_device_ms=_events_ms(single, REPS, True))
+        rec, _ = warm_median(lambda: dg.pagerank_sharded(sg, mesh))
+        ref, _ = warm_median(lambda: apps.pagerank(ell_w))
+        out["pagerank"] = dict(sharded=rec, single=ref)
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------- phase 13
 def _zipf_tokens(vocab_size, batch, seq_len):
     """(batch, seq_len) int32 ids of the port's ``ZipfPipeline`` (seed 0),
     remapped through DBG over the pipeline's own token frequencies, and the
@@ -2757,7 +3061,7 @@ def k2_grid(device):
     return cases, err
 
 
-# ---------------------------------------------------------------- phase 13
+# ---------------------------------------------------------------- phase 14
 def lm_parity(device):
     """Reduced Yi-9B (GQA) and OLMo-1B, the same weights on the CPU and the
     card: greedy tokens equal, every step's logits within rtol 1e-4, atol
@@ -2792,10 +3096,10 @@ def lm_parity(device):
     return worst
 
 
-# ---------------------------------------------------------------- phase 14
+# ---------------------------------------------------------------- phase 15
 def lm_serve(device):
     """Yi-9B at full width serves LM_BATCH requests through ``generate``.
-    Returns the model and what phase 15 and the ``kernels`` line need."""
+    Returns the model and what phase 16 and the ``kernels`` line need."""
     import statistics
 
     import torch
@@ -2923,7 +3227,7 @@ def profile_decode_step(model, tokens):
                 top=[(name[:90], n, ms) for name, (n, ms) in top[:8]])
 
 
-# ---------------------------------------------------------------- phase 15
+# ---------------------------------------------------------------- phase 16
 def _host_us(fn, n=1000):
     """Host microseconds per ``fn()`` over ``n`` calls issued with no sync
     between them: what the caller's thread spends to issue one call."""
@@ -3096,6 +3400,9 @@ def main() -> int:
     spec = dbg_spec(max(1.0, float(small.in_csr.degrees().mean())))
     small_tiles = ell_tiles(small.in_csr, spec.boundaries, device=dev)
     g, g_dbg, gw_dbg, res = build_graphs()
+    # phase 12's host layouts, built beside phases 3-11
+    dist_pool = ThreadPoolExecutor(1)
+    dist_prep = dist_pool.submit(dist_layouts, gw_dbg)
     in_deg = g_dbg.in_csr.degrees()
     big_tiles = ell_tiles(g_dbg.in_csr, dbg_spec(float(in_deg.mean())).boundaries,
                           device=dev)
@@ -3259,6 +3566,7 @@ def main() -> int:
 
     # 10. the streaming plane on phase 4's weighted DBG graph; the launch
     # counts are read from zero inside
+    ell_w = ells["dbg_w"]  # phase 12's single-device engine
     del ells
     gc.collect()
     torch.cuda.empty_cache()
@@ -3284,7 +3592,47 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     log(json.dumps({"serve": sv, "card": smi}))
 
-    # 12. K2 vs plain, once the graph state has left the card
+    # 12. the sharded engine on one NCCL rank over phase 4's weighted DBG
+    # graph; the launch counts are read from zero inside
+    gc.collect()
+    torch.cuda.empty_cache()
+    prep = dist_prep.result()
+    dist_pool.shutdown()
+    dp = dist_plane(gw_dbg, ell_w, prep, dev)
+    dist_path = {name: dp["launches"].get(name, 0) for name in _wrappers()}
+    del dp["launches"], prep, ell_w
+    for key, sz in dp["sizes"].items():
+        log(f"  layout D={key}: shard_graph {dp['host_layout_s'][key]:.1f} s "
+            f"on the host; hot panel {sz['n_hot']} vertices "
+            f"({sz['hot_frac']:.4f} of V), halo {sz['halo_slots']} slots "
+            f"(pad {sz['halo_max']} per pair, {sz['halo_bytes_padded']} B "
+            f"per pull); per shard (edges, halo received, hot owned): "
+            + ", ".join(f"({p['edges']}, {p['halo']}, {p['hot_owned']})"
+                        for p in sz["per_shard"]))
+    k5s, stm = dp["k5_shards"], dp["stream"]
+    log(f"  K5 over every shard's tiles of the {k5s['shards']}-shard layout: "
+        f"{k5s['calls']} calls agree with the plain version (max |err| of "
+        f"sums {k5s['max_abs_err']:.3g}), {k5s['hub_sums_twice']} hub-class "
+        f"sums bitwise over two calls ({k5s['seconds']:.1f} s)")
+    log(f"  sharded stream on kr/{DIST_STREAM_SCALE} ({stm['vertices']} "
+        f"vertices): {stm['batches']} batches of {stm['edges_per_batch']} "
+        f"edges, SSSP bitwise from {stm['sssp_roots']} roots, PageRank gaps "
+        f"to a full solve {[f'{x:.3g}' for x in stm['pr_gap']]} and to the "
+        f"service {[f'{x:.3g}' for x in stm['pr_service_gap']]}, "
+        f"{stm['remap_deltas']} remap "
+        f"deltas routed ({stm['moved']} moves), {stm['folds']} folds, "
+        f"full_rebuilds {stm['full_rebuilds']} ({stm['seconds']:.1f} s)")
+    pl, pr = dp["pull"], dp["pagerank"]
+    log(f"dist: pagerank_dist {dp['pagerank_dist_s']:.1f} s cold (layout, "
+        f"upload, {dp['pagerank_iters']} iterations; gap "
+        f"{dp['pagerank_gap']:.3g}); sharded pull {pl['ms']:.4f} ms (device "
+        f"alone {pl['device_ms']:.4f}) vs single-device "
+        f"{pl['single_ms']:.4f} ms ({pl['single_device_ms']:.4f}); PageRank "
+        f"{_span(pr['sharded'])} s vs {_span(pr['single'])} s; launches "
+        f"{dist_path} ({dp['seconds']:.1f} s)")
+    log(json.dumps({"dist": dp, "card": smi}))
+
+    # 13. K2 vs plain, once the graph state has left the card
     del small_tiles, small, g, g_dbg, gw_dbg, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -3298,13 +3646,13 @@ def main() -> int:
         f"bitwise equal, max |err| {e9} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 13. the LM serving path at reduced size, card against CPU
+    # 14. the LM serving path at reduced size, card against CPU
     t0 = time.perf_counter()
     used = lm_parity(dev)
     log(f"LM parity, card vs CPU: worst logit gap {used:.3g} of the band "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # 14. the LM serving path at full width; counts read from zero inside
+    # 15. the LM serving path at full width; counts read from zero inside
     t0 = time.perf_counter()
     model, served, lm = lm_serve(dev)
     prof = profile_decode_step(model, served)
@@ -3317,7 +3665,7 @@ def main() -> int:
     for kname, n, ms in prof["top"]:
         log(f"    {ms:9.3f} ms  {n:4d} x  {kname}")
 
-    # 15. K2's times
+    # 16. K2's times
     t0 = time.perf_counter()
     k2 = time_k2(model, served, REPS)
     for label, m in k2.items():
@@ -3335,7 +3683,7 @@ def main() -> int:
     # the device operations of what the serving loop passes to embed_lookup
     # (a prefill step's strided column of the prompt, a decode step's (B, 1)
     # greedy pick) and of hist_bin and dbg_bin at phase 8's call: all here,
-    # after phase 14's session, as this process's profiler reads reliably
+    # after phase 15's session, as this process's profiler reads reliably
     prefill, decode = served[:, 1:2], served[:, -1:].contiguous()
     with torch.no_grad():
         ops = _device_ops({
@@ -3362,7 +3710,8 @@ def main() -> int:
 
     timed = {
         "ell_edge_map": dict(t, max_abs_err=max(
-            e1, e2, t["max_abs_err"], sv["plane"]["max_abs_err"])),
+            e1, e2, t["max_abs_err"], sv["plane"]["max_abs_err"],
+            dp["k5_shards"]["max_abs_err"])),
         "hot_spmv": dict(k4, max_abs_err=max(err4, k4["max_abs_err"],
                                              pk_err["hot_spmv"])),
         "ell_spmv": dict(k1, max_abs_err=max(err1, k1["max_abs_err"],
@@ -3380,6 +3729,7 @@ def main() -> int:
         m = timed[kname]
         by_path = {"ell": ell_path[kname], "packed": packed[kname],
                    "stream": stream_path[kname], "serve": serve_path[kname],
+                   "dist": dist_path[kname],
                    "lm_serve": lm["launches"][kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
@@ -3412,6 +3762,9 @@ def main() -> int:
                 "bound_ms", "bound_by", "launches", "max_abs_err", "band",
                 "sssp_push")}
             entry["serve_plane"]["launches_on_path"] = serve_path[kname]
+            entry["dist"] = dict(dp["pull"], shards=1,
+                                 k5_shard_calls=dp["k5_shards"]["calls"],
+                                 launches_on_path=dist_path[kname])
         if "padded_ms" in m:  # K1 without the degrees: every lane
             entry["padded_ms"] = m["padded_ms"]
             entry["padded_bound_ms"] = m["padded_bound_ms"]

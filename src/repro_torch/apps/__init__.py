@@ -5,6 +5,7 @@ from .engine import (BACKENDS, EllBackend, FlatBackend,  # noqa: F401
                      resolve_backend, to_arrays)
 from .pagerank import pagerank  # noqa: F401
 from .pagerank_delta import pagerank_delta  # noqa: F401
+from .pagerank_dist import make_graph_mesh, pagerank_dist  # noqa: F401
 from .radii import radii, radii_sources  # noqa: F401
 from .sssp import sssp  # noqa: F401
 

@@ -22,7 +22,7 @@ from .pack.layout import ColdSegment, HotGroup, PackedAdjacency
 
 __all__ = ["graph_from_numpy", "tiles_from_numpy",
            "packed_adjacency_from_numpy", "ell_groups_from_numpy",
-           "lm_params_from_numpy"]
+           "sharded_graph_from_numpy", "lm_params_from_numpy"]
 
 
 def graph_from_numpy(in_indptr, in_indices, in_weights: Optional[np.ndarray],
@@ -119,6 +119,63 @@ def ell_groups_from_numpy(
     return [EllGroup(rows=t(rows, np.int64), idx=t(idx, np.int32),
                      w=t(w, np.float32), num_rows=int(num_rows))
             for rows, idx, w, num_rows in groups]
+
+
+_SHARDED_PLANES = ("in_slot", "in_dst_local", "in_w", "in_mask", "send_idx",
+                   "hot_ids", "out_src_local", "out_dst", "out_w",
+                   "out_mask", "in_deg", "out_deg")
+_SHARDED_INTS = ("n_shards", "num_vertices", "v_blk", "halo_max", "hot_cap",
+                 "hot_group_count", "row_tile", "width_tile")
+
+
+def _stacked_tiles(groups):
+    """Stacked ``(rows, idx, deg, w, alive)`` classes (attributes, any
+    array type) → ``ShardedTileGroup``s with each wide class's per-shard
+    segment lists, as the port's packer builds them."""
+    from .kernels.edge_map.ops import ShardedTileGroup, stacked_segments
+
+    if groups is None:
+        return None
+
+    def c(a):
+        return None if a is None else np.array(a, copy=True)
+
+    out = []
+    for t in groups:
+        deg = c(t.deg)
+        out.append(ShardedTileGroup(
+            rows=c(t.rows), idx=c(t.idx), deg=deg, w=c(t.w),
+            alive=c(getattr(t, "alive", None)),
+            segments=stacked_segments(deg, int(np.shape(t.idx)[2]))))
+    return tuple(out)
+
+
+def sharded_graph_from_numpy(layout: Any):
+    """The reference's ``ShardedGraphArrays`` (``layout``: anything with its
+    fields as attributes, arrays of any kind read out as numpy) → the
+    port's host layout, which every rank holds: the planes, the stacked
+    tiles (with the segment lists of classes wider than 1,024 lanes),
+    ``send_idx``, ``hot_ids``, ``stats`` and the delta segment.  The
+    remap bookkeeping is not carried: the result serves edge maps and
+    PageRank, not ``apply_remap``."""
+    from .dist.graph import ShardDeltaSegment, ShardedGraphArrays
+
+    kw = {f: np.array(getattr(layout, f), copy=True) for f in _SHARDED_PLANES}
+    kw.update({f: int(getattr(layout, f)) for f in _SHARDED_INTS})
+    delta = layout.delta
+    if delta is not None:
+        delta = ShardDeltaSegment(
+            **{f: np.array(getattr(delta, f), copy=True)
+               for f in ShardDeltaSegment._fields
+               if f not in ("pull_tiles", "push_tiles")},
+            pull_tiles=_stacked_tiles(delta.pull_tiles),
+            push_tiles=_stacked_tiles(delta.push_tiles))
+    return ShardedGraphArrays(
+        policy=str(layout.policy), backend=str(layout.backend),
+        weighted=bool(layout.weighted),
+        pull_tiles=_stacked_tiles(layout.pull_tiles),
+        push_tiles=_stacked_tiles(layout.push_tiles),
+        delta=delta, stats=dict(layout.stats), **kw)
 
 
 def _leaves(tree, prefix: str) -> Iterator[Tuple[str, np.ndarray]]:

@@ -17,6 +17,13 @@ materializes an O(E) edge-parallel intermediate.
 ``refresh_alive`` and ``coo_tiles`` are the stream's packers: both build
 their planes on the host exactly as the reference does, then put them on
 the device.
+
+``ell_tiles_sharded`` and ``coo_tiles_sharded`` are the sharded engine's
+packers (``repro_torch.dist``): D shards' tiles stacked on the host as
+numpy planes with a leading shard dim, the reference's planes bit for bit.
+A class wider than 1,024 lanes carries one segment list per shard, built
+at pack time; ``ShardedTileGroup.shard`` puts one shard's planes and list
+on a device as an ``EllTileGroup``.
 """
 from __future__ import annotations
 
@@ -27,13 +34,16 @@ import torch
 
 from ...device import resolve_device
 from ...graph import csr as csr_mod
-from .._wrap import class_segments
+from .._wrap import class_segments, lanes_per_row, row_segments
 from .edge_map import REDUCE_IDENTITY, edge_map_tile_bytes, ell_edge_map
 
 __all__ = [
     "EllTileGroup",
+    "ShardedTileGroup",
     "ell_tiles",
+    "ell_tiles_sharded",
     "coo_tiles",
+    "coo_tiles_sharded",
     "refresh_alive",
     "fused_edge_map",
     "fused_edge_map_bytes",
@@ -200,6 +210,148 @@ def ell_tiles(
     return tuple(out)
 
 
+class ShardedTileGroup(NamedTuple):
+    """One width class of D shards' ELL tiles, stacked on the host.
+
+    ``rows``  (D, R_pad) int32 owning row ids (0 in padding rows)
+    ``idx``   (D, R_pad, W_pad) uint16 or int32 gather ids
+    ``deg``   (D, R_pad) int32 true degrees (0 for padding rows)
+    ``w``     optional (D, R_pad, W_pad) float32 additive weights
+    ``alive`` optional (D, R_pad, W_pad) int8 tombstone planes
+    ``segments`` per shard, the (S_i, 3) int32 K5 segment list of its rows
+              when W_pad takes 256 lanes per row (``_wrap.class_segments``),
+              else ``None``
+    """
+
+    rows: np.ndarray
+    idx: np.ndarray
+    deg: np.ndarray
+    w: Optional[np.ndarray] = None
+    alive: Optional[np.ndarray] = None
+    segments: Optional[Tuple[np.ndarray, ...]] = None
+
+    def shard(self, i: int, device) -> EllTileGroup:
+        """Shard ``i``'s planes, segment list included, as an
+        ``EllTileGroup`` on ``device`` (rows widened to int64)."""
+        def t(a):
+            return None if a is None else torch.from_numpy(a[i]).to(
+                device, copy=True)
+
+        return EllTileGroup(
+            rows=torch.from_numpy(self.rows[i].astype(np.int64)).to(device),
+            idx=t(self.idx), deg=t(self.deg), w=t(self.w), alive=t(self.alive),
+            segments=None if self.segments is None else torch.from_numpy(
+                self.segments[i]).to(device, copy=True))
+
+
+def stacked_segments(deg: np.ndarray,
+                     w_pad: int) -> Optional[Tuple[np.ndarray, ...]]:
+    """Each shard's K5 segment list for a stacked class of width ``w_pad``
+    over the (D, R_pad) degrees ``deg``; ``None`` for a narrow class."""
+    if lanes_per_row(w_pad) < 256:
+        return None
+    return tuple(row_segments(d) for d in deg)
+
+
+def ell_tiles_sharded(
+    shard_edges: Sequence[Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]],
+    *,
+    id_upper: int,
+    boundaries: Optional[Sequence[int]] = None,
+    row_tile: int = 64,
+    width_tile: int = 128,
+    with_positions: bool = False,
+    with_alive: bool = False,
+):
+    """Pack D per-shard edge lists into ELL classes that STACK across shards.
+
+    ``shard_edges[i] = (rows, cols, w|None)`` is shard *i*'s edge list in
+    host numpy (rows in that shard's private row space, cols gather indices
+    < ``id_upper``).  Every plane of the returned ``ShardedTileGroup``s has
+    a leading shard dim, so all shards share one tile geometry: rows are
+    binned by their shard-local degree into the shared geometric
+    ``boundaries`` (default: ``dbg_spec`` of the pooled mean degree), each
+    bin's padded width is its max over ALL shards, same-width bins merge
+    into one class, and each class's row dim pads to the largest shard
+    population.  Padding rows have ``deg == 0`` and ``rows == 0``, so a
+    combine into an identity-initialized accumulator ignores them.  A class
+    wider than 1,024 lanes gets each shard's segment list.
+
+    ``with_positions=True`` also returns, per shard, an ``(E_i, 3)`` int32
+    array of each input edge's ``(class, row, col)`` tile slot (the patch
+    index of ``repro_torch.dist.graph.apply_remap``); ``with_alive=True``
+    attaches an all-ones int8 tombstone plane to every class.
+    """
+    from ...core.reorder import _assign_groups, dbg_spec
+
+    d = len(shard_edges)
+    per = []  # (urows, degs, starts, cols_sorted, w_sorted, order)
+    for rows, cols, w in shard_edges:
+        order = np.argsort(rows, kind="stable")
+        urows, degs = np.unique(rows[order], return_counts=True)
+        starts = np.concatenate([[0], np.cumsum(degs)])
+        per.append((urows, degs.astype(np.int64), starts, cols[order],
+                    None if w is None else w[order], order))
+    pooled = (np.concatenate([p[1] for p in per])
+              if any(p[1].size for p in per) else np.zeros(0, np.int64))
+    if boundaries is None:
+        mean = max(1.0, float(pooled.mean()) if pooled.size else 1.0)
+        boundaries = dbg_spec(mean).boundaries
+    nb = len(boundaries)
+    shard_bins = [_assign_groups(p[1], boundaries) for p in per]
+    bin_wmax = np.zeros(nb, np.int64)
+    for (_, degs, *_), grp in zip(per, shard_bins):
+        if degs.size:
+            np.maximum.at(bin_wmax, grp, degs)
+    by_width: dict = {}  # w_pad -> [bin ids], hottest bin first
+    for k in range(nb):
+        if bin_wmax[k] == 0:
+            continue
+        by_width.setdefault(_pad_dim(int(bin_wmax[k]), width_tile),
+                            []).append(k)
+
+    weighted = any(p[4] is not None for p in per)
+    id_dtype = _id_dtype(id_upper)
+    groups = []
+    positions = [np.full((rows.shape[0], 3), -1, np.int32)
+                 for rows, _, _ in shard_edges]
+    for ci, (w_pad, bins) in enumerate(by_width.items()):
+        sels = [np.concatenate([np.flatnonzero(g == k) for k in bins])
+                if g.size else np.zeros(0, np.int64)
+                for g in shard_bins]
+        r_pad = _pad_dim(max(int(s.size) for s in sels), row_tile)
+        idx = np.zeros((d, r_pad, w_pad), id_dtype)
+        deg = np.zeros((d, r_pad), np.int32)
+        rws = np.zeros((d, r_pad), np.int32)
+        wgt = np.zeros((d, r_pad, w_pad), np.float32) if weighted else None
+        for i, ((urows, degs, starts, cs, ws, order), sel) in enumerate(
+                zip(per, sels)):
+            if sel.size == 0:
+                continue
+            rdeg = degs[sel]
+            row_rep, col = _slot_coords(rdeg)
+            pos = csr_mod.ragged_offsets(starts[sel], rdeg)
+            idx[i][row_rep, col] = cs[pos].astype(id_dtype)
+            if wgt is not None and ws is not None:
+                wgt[i][row_rep, col] = ws[pos]
+            deg[i, : sel.size] = rdeg
+            rws[i, : sel.size] = urows[sel].astype(np.int32)
+            if with_positions:
+                # sorted-edge position p holds input edge order[p]
+                inp = order[pos]
+                positions[i][inp, 0] = ci
+                positions[i][inp, 1] = row_rep
+                positions[i][inp, 2] = col
+        groups.append(ShardedTileGroup(
+            rows=rws, idx=idx, deg=deg, w=wgt,
+            alive=np.ones((d, r_pad, w_pad), np.int8) if with_alive else None,
+            segments=stacked_segments(deg, w_pad)))
+    tiles = tuple(groups)
+    if with_positions:
+        return tiles, positions
+    return tiles
+
+
 def coo_tiles(
     src: np.ndarray,
     dst: np.ndarray,
@@ -247,6 +399,58 @@ def coo_tiles(
     return (EllTileGroup(
         rows=t(rows.astype(np.int64)), idx=t(idx), deg=t(deg_arr), w=t(wp),
         alive=t(ap), segments=class_segments(deg_arr, w_pad, device)),)
+
+
+def coo_tiles_sharded(
+    shard_edges: Sequence[Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]],
+    *,
+    id_upper: int,
+    row_cap: int = 0,
+    width_cap: int = 0,
+    row_tile: int = 64,
+    width_tile: int = 128,
+) -> Tuple[ShardedTileGroup, ...]:
+    """The delta-segment companion of :func:`ell_tiles_sharded`: D per-shard
+    COO delta lists packed into ONE dst-grouped class with a leading shard
+    dim.
+
+    ``shard_edges[i] = (rows, cols, w|None)`` is shard *i*'s ALIVE delta
+    edges.  The geometry is capacity-driven: the row / width dims pad to at
+    least ``row_cap`` / ``width_cap`` (callers pass the running maxima
+    back), so the shapes only grow while the buffer fills.  Each shard's
+    rows are its ``np.unique`` destinations: a row appears once per shard,
+    so the combine meets each real row once.  Delta destinations duplicate
+    base rows, so results fold in with the reduction.
+    """
+    d = len(shard_edges)
+    per = []
+    max_rows = max_width = 0
+    for rows, cols, w in shard_edges:
+        order = np.argsort(rows, kind="stable")
+        urows, degs = np.unique(rows[order], return_counts=True)
+        per.append((urows, degs.astype(np.int64), cols[order],
+                    None if w is None else w[order]))
+        max_rows = max(max_rows, int(urows.size))
+        max_width = max(max_width, int(degs.max()) if degs.size else 0)
+    r_pad = _pad_dim(max(1, max_rows, row_cap), row_tile)
+    w_pad = _pad_dim(max(1, max_width, width_cap), width_tile)
+    weighted = any(p[3] is not None for p in per)
+    id_dtype = _id_dtype(id_upper)
+    idx = np.zeros((d, r_pad, w_pad), id_dtype)
+    deg = np.zeros((d, r_pad), np.int32)
+    rws = np.zeros((d, r_pad), np.int32)
+    wgt = np.zeros((d, r_pad, w_pad), np.float32) if weighted else None
+    for i, (urows, degs, cs, ws) in enumerate(per):
+        if urows.size == 0:
+            continue
+        row_rep, col = _slot_coords(degs)
+        idx[i][row_rep, col] = cs.astype(id_dtype)
+        if wgt is not None and ws is not None:
+            wgt[i][row_rep, col] = ws
+        deg[i, : urows.size] = degs
+        rws[i, : urows.size] = urows.astype(np.int32)
+    return (ShardedTileGroup(rows=rws, idx=idx, deg=deg, w=wgt,
+                             segments=stacked_segments(deg, w_pad)),)
 
 
 def _scatter_combine(out: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,

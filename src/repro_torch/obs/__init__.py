@@ -19,7 +19,8 @@ The port's copy of ``repro.obs``, the measurement plane:
 Everything is off by default and bitwise-invisible to the computation when
 off; ``trace.enable()`` + ``counters.install()`` turn the lights on, and
 ``flight.install()`` arms the bounded always-on recorder.  The sharded
-engine's counters wait for its port (ROADMAP A11).
+engine (``repro_torch.dist``) reports through the same counters, with
+per-shard attribution.
 """
 from . import counters, flight, metrics, slo, trace
 from .counters import EdgeMapCounters, flat_edge_map_bytes

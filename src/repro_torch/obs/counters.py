@@ -33,9 +33,16 @@ bitwise identical to uninstrumented ones, and an uninstalled hook costs one
 ``is not None`` check per dispatch.
 
 ``record_iters`` takes the true per-lane iteration counts from a loop's
-owner: the serving plane calls it after every query batch (A8); the
-sharded engine will call it too (A11).  Not ported yet: the sharded
-engine's per-shard attribution (ROADMAP A11).
+owner: the serving plane calls it after every query batch, the sharded
+engine after every PageRank and SSSP solve.
+
+Sharded passes (``repro_torch.dist``) count under ``sharded_flat`` /
+``sharded_ell``, their edges from the layout's host degree vectors (base +
+delta − tombstones) and their bytes through
+``dist.graph.edge_map_bytes_sharded``, with each shard's share under
+``edge_map.shard_edges.{i}`` / ``edge_map.shard_bytes.{i}``.  Every rank
+that runs the pass counts it, the whole layout's numbers: the layout is
+replicated on every rank's host.
 """
 from __future__ import annotations
 
@@ -88,11 +95,34 @@ _TYPE_NAMES = {
     "FlatBackend": "flat",
     "EllBackend": "ell",
     "PackedBackend": "packed",
+    "ShardedGraphArrays": "sharded",
 }
 
 
 def backend_name(ga: Any) -> str:
-    return _TYPE_NAMES.get(type(ga).__name__, type(ga).__name__.lower())
+    name = _TYPE_NAMES.get(type(ga).__name__, type(ga).__name__.lower())
+    if name == "sharded":  # split by the layout's own engine backend
+        name = f"sharded_{getattr(ga, 'backend', 'flat')}"
+    return name
+
+
+def _shard_edges(ga: Any, direction: str) -> Optional[np.ndarray]:
+    """Alive edges owned by each shard: the (V,) host degree vector of the
+    pass direction, split by owner block (``v_blk``).  Destination sharding
+    puts every edge at exactly one owner, and the degrees are maintained
+    under streaming ingest, so this counts base + delta − tombstones on
+    both layouts without touching any O(E) plane."""
+    deg = getattr(ga, "out_deg" if direction == "push" else "in_deg", None)
+    d = int(getattr(ga, "n_shards", 0) or 0)
+    v_blk = int(getattr(ga, "v_blk", 0) or 0)
+    if deg is None or d <= 0 or v_blk <= 0:
+        return None
+    deg = np.asarray(deg)
+    if deg.ndim != 1:
+        return None
+    pad = np.zeros(d * v_blk, np.int64)
+    pad[:deg.shape[0]] = deg  # v_pad = d * v_blk >= V
+    return pad.reshape(d, v_blk).sum(axis=1)
 
 
 def _num_edges(ga: Any) -> int:
@@ -115,6 +145,9 @@ class EdgeMapCounters:
       ``edge_map.edges``                          edges traversed
       ``edge_map.lanes``                          ``K`` summed per pass
       ``edge_map.model_bytes``                    modeled HBM bytes
+      ``edge_map.shard_edges.{i}`` / ``edge_map.shard_bytes.{i}``
+          sharded passes: shard ``i``'s alive edges and its slice of the
+          byte model (``sum_i shard_bytes.i`` is the pass's model bytes)
       ``edge_map.frontier_density``               histogram, per frontier
                                                   pass (folded on read)
       ``edge_map.iters.{app}``                    iterations, summed over
@@ -143,7 +176,10 @@ class EdgeMapCounters:
         name = backend_name(ga)
         reg.counter(f"edge_map.passes.{name}.{direction}").inc()
 
-        edges = _num_edges(ga)
+        sharded = name.startswith("sharded")
+        per_edges = _shard_edges(ga, direction) if sharded else None
+        edges = (int(per_edges.sum()) if per_edges is not None
+                 else 0 if sharded else _num_edges(ga))
         plane_k = 1
         shape = getattr(prop, "shape", None)
         if shape is not None and len(shape) > 1:
@@ -156,6 +192,11 @@ class EdgeMapCounters:
                                         src_frontier)
         if model_bytes:
             reg.counter("edge_map.model_bytes").inc(model_bytes)
+        if per_edges is not None:
+            per_bytes = model_bytes // max(1, len(per_edges))
+            for i, e_i in enumerate(per_edges):
+                reg.counter(f"edge_map.shard_edges.{i}").inc(int(e_i))
+                reg.counter(f"edge_map.shard_bytes.{i}").inc(per_bytes)
 
         self._hold_density(ga, src_frontier)
 
@@ -191,6 +232,13 @@ class EdgeMapCounters:
             return fused_edge_map_bytes(
                 in_tiles, v, use_weights=use_weights, frontier=has_frontier,
                 push_init=push_init, plane_k=plane_k, frontier_planar=planar)
+        if backend_name(ga).startswith("sharded"):
+            from ..dist.graph import edge_map_bytes_sharded
+
+            mode = direction if direction in ("pull", "push") else "pull"
+            return (edge_map_bytes_sharded(ga, mode=mode,
+                                           use_weights=use_weights)
+                    * ga.n_shards)
         if edges and v:
             return flat_edge_map_bytes(
                 edges, v, weighted=use_weights, frontier=has_frontier,

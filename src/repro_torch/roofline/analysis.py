@@ -16,8 +16,9 @@ has one profile, ``"h100"``, whose numbers ``chip_smoke.py``
     of the interpreter; the port's kernels launch once per tile class, not
     once per grid step, so no configuration of the space changes how many
     launches one pass makes per grid step;
-  * ``link_bw`` — infinite: one card prices no collective (the sharded
-    engine, ROADMAP A11, has not been ported).
+  * ``link_bw`` — infinite: one card prices no collective.  The sharded
+    engine (``repro_torch.dist``) runs, but the link rate between cards
+    has not been measured: that waits for a machine with four cards.
 
 The XLA dry-run parsers (``parse_hlo_costs``, ``parse_collective_bytes``),
 ``model_flops`` and ``roofline_terms`` read compiled XLA artifacts and wait

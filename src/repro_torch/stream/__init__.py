@@ -9,12 +9,11 @@ maintenance, the port of ``repro.stream``.
   push) and SSSP (insertion relaxation, deletion fallback) refresh, on the
   edge-parallel stream arrays or through K5 over the base+delta tiles;
 * ``service``     — the ingest-and-query loop with regroup/compact policies
-  and the cachesim locality-decay hook.
-
-The sharded service (``repro.stream.sharded``) waits for the distributed
-graph engine (ROADMAP A11).
+  and the cachesim locality-decay hook;
+* ``sharded``     — ``ShardedStreamService``: the same loop mirrored into a
+  sharded layout (``repro_torch.dist``), O(delta) per batch.
 """
-from . import delta, incremental, regroup, service  # noqa: F401
+from . import delta, incremental, regroup, service, sharded  # noqa: F401
 from .delta import ApplyResult, DeltaGraph  # noqa: F401
 from .incremental import (  # noqa: F401
     IncrementalPageRank,
@@ -28,6 +27,7 @@ from .incremental import (  # noqa: F401
     stream_push_tiles,
 )
 from .regroup import IncrementalDBG, RemapDelta  # noqa: F401
+from .sharded import ShardedStreamService  # noqa: F401
 from .service import (  # noqa: F401
     IngestStats,
     StreamConfig,

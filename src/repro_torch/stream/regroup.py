@@ -71,7 +71,7 @@ class RemapDelta:
         A vertex keeps its FIRST old group and LAST new group; vertices that
         ended up back where they started drop out entirely — exactly what a
         consumer applying the deltas in one shot (the sharded layout's
-        ``apply_remap``, ROADMAP A11) needs.  Seconds accumulate;
+        ``repro_torch.dist.graph.apply_remap``) needs.  Seconds accumulate;
         ``spec_rebuilt`` ORs.
         """
         if not deltas:

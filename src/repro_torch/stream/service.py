@@ -4,8 +4,8 @@ answer queries.
 Port of ``repro.stream.service`` on the port's ``cachesim``, ``pack`` and
 ``obs``: the same spans, flight triggers, SLO health and ``cachesim.mpka.*``
 gauges.  The incremental consumers run on ``device`` (``None``: the CUDA
-card).  ``apply_remaps_to`` needs the sharded layout and raises
-``NotImplementedError`` until it is ported (ROADMAP A11).
+card).  ``apply_remaps_to`` routes the regroups into a sharded layout of
+``repro_torch.dist``.
 
 ``StreamService`` is the subsystem's front door, wired the way ``serve``
 batches LM requests: updates arrive in batches, queries are answered from
@@ -188,6 +188,7 @@ class StreamService:
         self.compactions = 0
         self.history: List[IngestStats] = []
         self.remap_deltas: List[RemapDelta] = []
+        self._remaps_consumed = 0  # prefix already routed to a sharded layout
         # batch SOURCES since the last regroup pass (regroup_every > 1 must
         # not drop degree updates from skipped batches; destination-only
         # vertices never change out-degree, so the regrouper — which bins on
@@ -302,12 +303,35 @@ class StreamService:
                 if self.regrouper is not None else None)
 
     def apply_remaps_to(self, sg):
-        """Route the accumulated ``RemapDelta``s into a sharded layout: it
-        needs the distributed graph engine, which is not ported yet."""
-        raise NotImplementedError(
-            "StreamService.apply_remaps_to routes RemapDeltas into a sharded "
-            "layout, which is not ported yet (ROADMAP A11: the distributed "
-            "graph engine)")
+        """Route the accumulated ``RemapDelta``s into a sharded layout.
+
+        Shard-aware update routing: the deltas emitted since the last call
+        are merged (net group moves only) and fed to
+        ``repro_torch.dist.graph.apply_remap``, which re-homes exactly the
+        vertices that crossed a hot/cold group boundary — instead of
+        re-sharding from a full ``current_mapping()``.  Returns the patched
+        layout; on ``RemapOverflow`` (drift exceeded the layout's reserved
+        headroom) the caller should rebuild via ``shard_graph`` with
+        ``hot_override=self.regrouper.hot_ids(sg.hot_group_count)`` — the
+        deltas stay UNCONSUMED then (a later call replays them as no-ops
+        against the rebuilt layout, so no drift is lost).  Topology deltas
+        are not applied here (``ShardedStreamService`` routes them).
+        """
+        from ..dist.graph import RemapOverflow, apply_remap
+
+        consumed = len(self.remap_deltas)
+        try:
+            out = apply_remap(
+                sg,
+                RemapDelta.merge(self.remap_deltas[self._remaps_consumed:]))
+        except RemapOverflow as exc:
+            obs_flight.trigger(
+                "remap_overflow",
+                pending_deltas=consumed - self._remaps_consumed,
+                detail=str(exc))
+            raise
+        self._remaps_consumed = consumed  # only after apply_remap succeeded
+        return out
 
     def snapshot(self) -> csr.Graph:
         return self.dg.snapshot()

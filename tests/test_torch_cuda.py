@@ -10,7 +10,10 @@ streaming plane: K5 over the stream's tiles (alive planes, a ``coo_tiles``
 delta tile), the unfused stream push without float atomics, and the
 incremental consumers against the CPU; the serving plane: the batched apps
 on ``ell`` and ``packed``, ``GraphServeService`` and the tuner's sweep on
-the card against the CPU, and the sweep raising when a kernel fails.
+the card against the CPU, and the sweep raising when a kernel fails; the
+sharded engine on one NCCL rank (pull and push against the flat engine,
+K5 over every shard's tiles of a 4-shard layout, the sharded stream
+against the CPU's service, every map twice bitwise).
 
 Run on a machine with an NVIDIA card and ``nvcc``:
 
@@ -999,3 +1002,142 @@ def test_sweep_on_the_card_raises_when_a_kernel_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         search.sweep(g, app="pr", top_k=3, extras=1, reps_schedule=(1,),
                      device=cuda)
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL group on the card (``file://`` rendezvous), torn
+    down after the test."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist.graph import make_graph_mesh
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                             rank=0, world_size=1)
+    try:
+        yield make_graph_mesh(1)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _sum_band(got, want):
+    scale = 1.0 + float(want[torch.isfinite(want)].abs().max())
+    return float((got - want).abs().max()) <= 2e-6 * scale
+
+
+@pytest.mark.parametrize("backend", ["flat", "ell"])
+def test_sharded_engine_on_one_nccl_rank_matches_plain_path(nccl_mesh,
+                                                             backend):
+    """One NCCL rank on the card: the sharded pull and push (weights on and
+    off) against the single-device flat engine on the card, min/max bitwise
+    and sums in the band; ``ell`` launches K5 and ``flat`` does not; each
+    map twice bitwise (no float atomics on a repeated index)."""
+    from repro_torch.apps import engine
+    from repro_torch.dist import graph as dg
+    from repro_torch.kernels.edge_map import ell_edge_map
+
+    g = _graph()
+    cuda = nccl_mesh.device
+    sg = dg.shard_graph(engine.to_arrays(g, backend="arrays", device="cpu"),
+                        1, backend=backend)
+    flat = engine.to_arrays(g, backend="flat", device=cuda)
+    x = torch.rand(g.num_vertices,
+                   generator=torch.Generator(device=cuda).manual_seed(3),
+                   device=cuda)
+    before = ell_edge_map.launches
+    for red in ("sum", "min", "max"):
+        for uw in (False, True):
+            for mode in ("pull", "push"):
+                fn = (dg.edge_map_pull_sharded if mode == "pull"
+                      else dg.edge_map_push_sharded)
+                got = fn(sg, x, nccl_mesh, reduce=red, use_weights=uw)
+                again = fn(sg, x, nccl_mesh, reduce=red, use_weights=uw)
+                want = (engine.edge_map_pull if mode == "pull"
+                        else engine.edge_map_push)(flat, x, reduce=red,
+                                                   use_weights=uw)
+                assert torch.equal(got, again), (mode, red, uw)
+                if red == "sum":
+                    assert _sum_band(got, want), (mode, red, uw)
+                else:
+                    assert torch.equal(got, want), (mode, red, uw)
+    assert (ell_edge_map.launches > before) == (backend == "ell")
+
+
+def test_k5_over_every_shards_tiles_of_a_four_shard_layout(cuda):
+    """K5 over each shard's pull and push tiles of a 4-shard layout (no
+    process group: each table built from the global vector, as the
+    exchange delivers it) against its plain version: min/max bitwise, sums
+    in the band, each call twice bitwise."""
+    from repro_torch.apps import engine
+    from repro_torch.dist import graph as dg
+    from repro_torch.kernels.edge_map import ell_edge_map, ell_edge_map_ref
+    from repro_torch.kernels.edge_map.ops import _tile_of
+
+    g = _graph()
+    sg = dg.shard_graph(engine.to_arrays(g, backend="arrays", device="cpu"),
+                        4, backend="ell")
+    x = torch.rand(g.num_vertices,
+                   generator=torch.Generator(device=cuda).manual_seed(4),
+                   device=cuda)
+    for i in range(4):
+        table = dg.exchange_table(sg, x, i)
+        for side, tiles, xs in (("pull", sg.pull_tiles, table),
+                                ("push", sg.push_tiles, table[: sg.v_blk])):
+            for c, st in enumerate(tiles):
+                t = st.shard(i, cuda)
+                r, w = t.idx.shape
+                for red in ("sum", "min", "max"):
+                    kw = dict(reduce=red, w=t.w, alive=t.alive,
+                              neutral={"sum": 0.0, "min": float("inf"),
+                                       "max": float("-inf")}[red])
+                    got = ell_edge_map(xs, t.idx, t.deg, segments=t.segments,
+                                       row_tile=_tile_of(r, sg.row_tile),
+                                       width_tile=_tile_of(w, sg.width_tile),
+                                       **kw)
+                    again = ell_edge_map(xs, t.idx, t.deg,
+                                         segments=t.segments,
+                                         row_tile=_tile_of(r, sg.row_tile),
+                                         width_tile=_tile_of(w, sg.width_tile),
+                                         **kw)
+                    want = ell_edge_map_ref(xs, t.idx, t.deg, **kw)
+                    what = (i, side, c, red)
+                    assert torch.equal(got, again), what
+                    if red == "sum":
+                        assert _sum_band(got, want), what
+                    else:
+                        assert torch.equal(got, want), what
+
+
+@pytest.mark.parametrize("backend", ["flat", "ell"])
+def test_sharded_stream_on_one_nccl_rank_matches_the_cpu(nccl_mesh, backend):
+    """The sharded stream service on one NCCL rank against the
+    single-device service on the CPU over churn with a compaction: SSSP
+    bitwise, PageRank within the reference's 2e-7; its queries twice
+    bitwise."""
+    from repro_torch.stream import StreamConfig, StreamService
+    from repro_torch.stream.sharded import ShardedStreamService
+
+    g = _graph()
+    cfg = dict(regroup_every=1, hysteresis=0.0)
+    ref = StreamService(g, StreamConfig(**cfg), device="cpu")
+    sh = ShardedStreamService(g, StreamConfig(**cfg), mesh=nccl_mesh,
+                              backend=backend, shard_compact_threshold=0.01)
+    rng = np.random.default_rng(8)
+    v = g.num_vertices
+    for _ in range(3):
+        es, ed, _ = ref.dg.alive_edges()
+        idx = rng.choice(es.shape[0], size=40, replace=False)
+        kw = dict(add_src=rng.integers(0, v, 160),
+                  add_dst=rng.integers(0, v, 160),
+                  add_w=rng.random(160).astype(np.float32) + 1.0,
+                  del_src=es[idx], del_dst=ed[idx])
+        ref.ingest(**kw)
+        sh.ingest(**kw)
+        root = int(rng.integers(0, v))
+        got = sh.sssp(root)
+        np.testing.assert_array_equal(got, ref.sssp(root))
+        np.testing.assert_array_equal(got, sh.sssp(root))
+        pr = sh.pagerank()
+        np.testing.assert_array_equal(pr, sh.pagerank())
+        np.testing.assert_allclose(pr, ref.pagerank(), rtol=0, atol=2e-7)
+    assert any(h["compacted"] for h in sh.shard_history)

@@ -56,9 +56,9 @@ def _imported_names(path: Path):
 
 def test_the_source_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in SOURCES if PORT in p.parents}
-    for pkg in ("apps", "cachesim", "configs", "core", "data", "graph",
-                "kernels", "launch", "lm", "obs", "pack", "roofline",
-                "serve", "stream", "tune"):
+    for pkg in ("apps", "cachesim", "configs", "core", "data", "dist",
+                "graph", "kernels", "launch", "lm", "obs", "pack",
+                "roofline", "serve", "stream", "tune"):
         assert pkg in scanned
     assert ROOT / "chip_smoke.py" in SOURCES
 

@@ -1065,9 +1065,32 @@ def test_packed_graph_from_delta_matches_reference(base_graph):
 
 
 def test_apply_remaps_to_waits_for_the_sharded_layout(base_graph):
-    psvc = stream.StreamService(base_graph[1], device=CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        psvc.apply_remaps_to(None)
+    """``apply_remaps_to`` routes the service's regroups into a sharded
+    layout (``repro_torch.dist``) as the reference's does: the same
+    patched planes and stats, each delta consumed once."""
+    from repro.apps import to_arrays as ref_arrays
+    from repro.dist import graph as ref_dg
+    from repro_torch.dist import graph as dg
+
+    rsvc, psvc = _services(base_graph, regroup_every=1, hysteresis=0.0)
+    rng = np.random.default_rng(17)
+    for _ in range(3):
+        a_s, a_d, d_s, d_d = _random_batch(rsvc.dg, rng, n_add=300)
+        for svc in (rsvc, psvc):
+            svc.ingest(add_src=a_s, add_dst=a_d, del_src=d_s, del_dst=d_d)
+    assert sum(d.num_moved for d in psvc.remap_deltas) > 0
+    rs = rsvc.apply_remaps_to(
+        ref_dg.shard_graph(ref_arrays(base_graph[0], backend="arrays"), 2,
+                           backend="ell"))
+    ps = psvc.apply_remaps_to(
+        dg.shard_graph(apps.to_arrays(base_graph[1], backend="arrays",
+                                      device=CPU), 2, backend="ell"))
+    assert rs.stats == ps.stats
+    for f in ("in_slot", "send_idx", "hot_ids"):
+        _eq(getattr(rs, f), getattr(ps, f))
+    for rt, pt in zip(rs.pull_tiles, ps.pull_tiles):
+        _eq(rt.idx, pt.idx)
+    assert psvc.apply_remaps_to(ps) is ps
 
 
 def test_stream_refresh_defaults_to_cuda_and_raises_without_it(monkeypatch,
