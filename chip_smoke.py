@@ -188,7 +188,32 @@ Phases (any failure raises, and the script exits non-zero):
      of one ``embed_lookup`` at a prefill and at a decode step (1 each) and
      of one hist_bin (1) and one dbg_bin call (2) at phase 8's call, read
      together here: in runs that first profiled in phase 8, phase 16's
-     profile of the prefill lookup held no device event.
+     profile of the prefill lookup held no device event;
+ 17. the full-sequence forward at full width: Yi-9B's ``forward`` over
+     phase 15's served (4, 64) tokens, every position within the
+     reference's decode band (rtol 2e-2, atol 2e-4) of ``generate``'s step
+     logits, ``last_only`` within rtol 1e-4, atol 1e-5 of the full call's
+     last position, one K2 launch per call, its time from an idle device;
+ 18. (Yi-9B freed) training: OLMo-1B at its published config (16 layers,
+     d_model 2048, vocabulary 50,304, non-parametric LayerNorm, remat) from
+     seeded weights on ``launch.train``'s DBG-reordered Zipf stream, B = 4,
+     S = 2,048, bf16 compute on float32 masters: one warm-up and
+     ``TRAIN_TIMED`` timed steps (ms per step, tokens/s, TFLOP/s by the
+     formula printed, peak memory, the embedding backward's ms); checks:
+     loss and grad norm finite, every parameter changed by step 1, the
+     master gradients of ``embed.hot``/``embed.cold`` nonzero on exactly
+     the rows the ids read, K2 launches = forward passes, the embedding
+     backward twice bitwise and within 1e-6 relative of the CPU's; the
+     step split into gradients and update (CUDA events) and one step's
+     kernels by class under ``torch.profiler`` (busy and idle share); then
+     reduced Yi-9B (GQA) and OLMo-1B, card against CPU: 3 float32 steps
+     (loss, grad norm 1e-5 relative; parameters ``PARITY_PARAM_ATOL``) and
+     the forward at S = 1,024 in phase 14's band; then the driver
+     (``launch.train.main``, ``DRIVER_ARGS``) for ``DRIVER_STEPS`` steps
+     straight, and preempted halfway by a SIGTERM and resumed, checkpoints
+     under ``build/``: final parameters and optimizer state bitwise equal, the
+     straight run's return code 0 (the loss decreased); a ``train`` JSON
+     line.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
 device and ``device_ms`` on the device alone, its library call's
@@ -203,7 +228,9 @@ beside 8 one-column pulls, cuSPARSE SpMM and the bound, with one
 ``batched_sssp`` push step at K = 8; K1's ``ms`` and
 ``bound_ms`` are
 its degree walk's, ``padded_ms`` and ``padded_bound_ms`` its every-lane
-path's; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG,
+path's; K2's ``launches_by_path`` has ``lm_forward`` and ``lm_train`` (the
+full-width forward and the timed training steps) and its ``lm_train`` the
+plain backward's ms per step; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG,
 ``device_ops_per_call`` counts its device operations, and ``two_ops_ms`` and
 ``two_ops_device_ms`` time its two-op comparison build; ``stable_rank``
 replaces no TPU kernel, and its ``replaces`` names the reference's XLA
@@ -238,6 +265,23 @@ HIST_BIN_BUILDS = {"two_ops": ["-DHIST_BIN_TWO_OPS=1"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
+# phase 17: the full-sequence forward over phase 15's served tokens
+FORWARD_REPS = 5
+# phase 18: OLMo-1B trained at its published widths on the Zipf stream
+TRAIN_ARCH = "olmo_1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048   # 8,192 tokens per step
+TRAIN_TIMED = 5                    # timed steps, after one warm-up step
+TRAIN_OPT = dict(lr=3e-4, warmup=2, total_steps=6, compute_dtype="bfloat16")
+TRAIN_PARITY_STEPS = 3             # reduced models, card against CPU
+# their parameters after 3 steps at lr 1e-3: 2.9e-5 apart at most, every
+# element (the logits differ by up to ~5e-5 relative between cuBLAS and the
+# CPU, and Adam divides by √v); PERF.md §6
+PARITY_PARAM_ATOL = 1e-4
+# the driver (launch.train) straight, then preempted halfway by a SIGTERM
+# and resumed
+DRIVER_ARGS = ["--preset", "m100", "--batch", "8", "--seq", "256"]
+DRIVER_STEPS = 100
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 (tensor cores)
 EVAL_REPS = 5              # timed warm runs per app (median), after one warm-up
 # the paper's orderings (Fig. 3: random_vertex destroys structure), phase 9
 EVAL_ORDERINGS = ("original", "sort", "hubsort", "hubcluster", "dbg",
@@ -246,16 +290,16 @@ EVAL_TRACED = "sort"       # phase 9 traces this ordering's build and a PageRank
 # phase 10: the reference churn benchmark's traffic (benchmarks/stream_churn.py)
 # with its 256-edge series left out: on the H100's host that series took
 # ~60 s of a phase that ran 448 s (PERF.md, the stream cell), and the script
-# must stay inside its time limit; for the same reason each series runs 6
-# batches, not the 10 of PR 18 (phase 11 came after it)
+# must stay inside its time limit; for the same reason each series runs
+# STREAM_BATCHES batches, not the 10 of PR 18 (phases 11 to 18 came after it)
 STREAM_SIZES = (1024, 4096)       # edges per batch, one series each
-STREAM_BATCHES = 4                # batches per series, all on one service
+STREAM_BATCHES = 3                # batches per series, all on one service
 STREAM_INSERT_FRAC = 0.75
 # the incremental_dbg policy (regroup every batch) with the fused PageRank
-# push; the threshold puts exactly the final batch over it: 16,384 edges of
-# churn before it, 20,480 with it, against 0.00045 x 41,943,040 = 18,874.4
+# push; the threshold puts exactly the final batch over it: 11,264 edges of
+# churn before it, 15,360 with it, against 0.0003 x 41,943,040 = 12,582.9
 STREAM_CONFIG = dict(pr_fused_push=True, regroup_every=1,
-                     compact_threshold=0.00045)
+                     compact_threshold=0.0003)
 # then one batch of inserts alone: the incremental SSSP relaxation
 STREAM_INSERT_ONLY = 4096
 # phase 11: the serving plane (the reference's serve_qps workload on
@@ -1442,6 +1486,7 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
         f"{tables['degree_ranges']}")
 
     rows, want, trace_tr = [], {}, None
+    relabel_pool = ThreadPoolExecutor(1)
     for ordering in EVAL_ORDERINGS:
         t0 = time.perf_counter()
         if ordering == "original":
@@ -1452,9 +1497,11 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
             g_x, r = reordered(g, ordering)
             mapping, reorder_s = r.mapping, r.seconds
         t1 = time.perf_counter()
-        gw_x = (gw_dbg if ordering == "dbg"
-                else csr.relabel(gw_dbg, mapping[inv_dbg]))
-        t2 = time.perf_counter()
+        # SSSP's weighted copy, relabelled in a thread beside the ell build
+        # and the cache model (numpy's sorts release the GIL); joined before
+        # anything is timed
+        relabel = (None if ordering == "dbg" else relabel_pool.submit(
+            csr.relabel, gw_dbg, mapping[inv_dbg]))
         traced = ordering == EVAL_TRACED
         if ordering in ("original", "dbg"):  # phase 4's backends
             ell = ells["orig" if ordering == "original" else "dbg"]
@@ -1463,11 +1510,13 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
                 trace_tr = obs_trace.enable()
             ell = apps.to_arrays(g_x, backend="ell", device=device)
             obs_trace.disable()
+        cache = _cache_model(g_x)
+        gw_x = gw_dbg if relabel is None else relabel.result()
+        t2 = time.perf_counter()
         ell_w = (ells["dbg_w"] if ordering == "dbg"
                  else apps.to_arrays(gw_x, backend="ell", device=device))
         _sync()
         t3 = time.perf_counter()
-        cache = _cache_model(g_x)
         # the layer under the apps: one PageRank-shaped pull (K5 over every
         # class) on the device alone, in this ordering
         x = torch.rand(v, generator=torch.Generator(device=device)
@@ -1480,8 +1529,9 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
         pull8_ms = _events_ms(lambda: ell.pull(x8, reduce="sum"), REPS,
                               device_only=True)
         log(f"  ordering {ordering}: host reorder {reorder_s:.2f} s (mapping "
-            f"+ CSR rebuild; {t1 - t0:.1f} s here), weighted relabel "
-            f"{t2 - t1:.1f} s, ell backends {t3 - t2:.1f} s; one pull on "
+            f"+ CSR rebuild; {t1 - t0:.1f} s here), the weighted relabel "
+            f"beside the ell build and the cache model {t2 - t1:.1f} s, the "
+            f"weighted ell {t3 - t2:.1f} s; one pull on "
             f"the device alone {pull_ms:.4f} ms, over a (V, 8) plane "
             f"{pull8_ms:.4f} ms; cache model of the pull "
             f"trace ({cache['accesses']} accesses, {cache['seconds']:.1f} "
@@ -1552,6 +1602,7 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
         del ell, ell_w, g_x, gw_x, m, x, x8
         gc.collect()
         torch.cuda.empty_cache()
+    relabel_pool.shutdown()
     # The DBG ordering's backends are phase 4's and still on the card: its
     # five apps timed again after every other ordering show how far a cell
     # drifts within the phase.
@@ -3188,7 +3239,7 @@ def lm_serve(device):
     return model, out, dict(
         launches=launches, gen_s=gen_s, first_s=first_s, decode_ms=decode_ms,
         prefill_ms=prefill_ms, peak_gib=peak / 2**30, hot_share=hot_share,
-        max_abs_err=err, n_params=n_params)
+        max_abs_err=err, n_params=n_params, step_logits=logits)
 
 
 def profile_decode_step(model, tokens):
@@ -3347,6 +3398,413 @@ def time_k2(model, served, reps):
             lambda: F.embedding(ids, table))
         del table
     return out
+
+
+# ---------------------------------------------------------------- phase 17
+def _band_used(got, want, rtol, atol):
+    """The largest |got - want| / (atol + rtol |want|): at most 1 inside
+    the band."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def _matmul_params(model):
+    """Parameters that enter a matrix product: all but the embedding
+    tables, which are gathered."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if n not in ("embed.hot", "embed.cold", "embed.table"))
+
+
+def lm_forward(model, served, step_logits, reps):
+    """A12.1 at full width: ``forward`` over the served tokens (B, S) against
+    ``generate``'s step logits (position t against the step that read token
+    t) in the reference's decode band, rtol 2e-2, atol 2e-4; ``last_only``
+    against the full call's last position in phase 14's band, rtol 1e-4,
+    atol 1e-5 (cuBLAS may choose another algorithm for M = B); one K2 launch
+    per call; the forward's time from an idle device."""
+    import torch
+
+    import repro_torch.lm.model as model_mod
+    from repro_torch.kernels.gather_embed import hot_gather
+
+    with torch.no_grad():
+        _reset_launches()
+        full, _ = model_mod.forward(model, served)
+        _sync()
+        launches = _read_launches()
+        n0 = hot_gather.launches
+        last, _ = model_mod.forward(model, served, last_only=True)
+        last_launches = hot_gather.launches - n0
+    if launches["hot_gather"] != 1 or last_launches != 1:
+        raise AssertionError(f"forward launched K2 {launches['hot_gather']} "
+                             f"and {last_launches} times, not once a call")
+    others = {k: n for k, n in launches.items() if k != "hot_gather" and n}
+    if others:
+        raise AssertionError(f"graph kernels launched by forward: {others}")
+    want = torch.cat(step_logits, dim=1)
+    if want.shape != full.shape:
+        raise AssertionError(f"forward gave {tuple(full.shape)}, generate "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError("forward logits not finite")
+    used = _band_used(full, want, 2e-2, 2e-4)
+    used_last = _band_used(last, full[:, -1:], 1e-4, 1e-5)
+    if not (used <= 1.0 and used_last <= 1.0):
+        raise AssertionError(f"forward off generate by {used:.3g}x the decode"
+                             f" band, last_only off by {used_last:.3g}x")
+    cfg = model.cfg
+    b, s = served.shape
+
+    def fwd():
+        with torch.no_grad():
+            model_mod.forward(model, served)
+
+    ms = _events_ms(fwd, reps)
+    flops = (2 * _matmul_params(model) * b * s
+             + 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * s * b * s)
+    return dict(launches=launches, ms=ms, band_used=used,
+                last_only_band_used=used_last, tokens=b * s,
+                tflops_per_s=flops / ms / 1e9,
+                flops_formula="2*N_matmul*T + 4*L*H*Dh*S*T (full S x S "
+                              "scores), T = B*S")
+
+
+# ---------------------------------------------------------------- phase 18
+def lm_train(device):
+    """OLMo-1B at its published config (remat on) trained from seeded
+    weights for one warm-up step and TRAIN_TIMED timed steps on the DBG-
+    reordered Zipf stream, bf16 compute on float32 masters.  Checks: loss
+    and grad norm finite, grad norm > 0; after step 1 every parameter has
+    changed and the master gradients of ``embed.hot`` / ``embed.cold`` are
+    nonzero on exactly the rows the batch's ids read; K2 launches = forward
+    passes; the embedding backward twice bitwise on the step's ids and
+    gradient, and within 1e-6 relative of it on CPU copies."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather_embed import ops as k2_ops
+    from repro_torch.launch.train import dbg_stream
+    from repro_torch.lm.model import init_params
+    from repro_torch.train.step import OptConfig, init_opt, make_train_step
+
+    cfg, pipe, vr = dbg_stream(get_config(TRAIN_ARCH), TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=device)
+    opt = init_opt(model)
+    _sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.arch_id}: {n_params} parameters ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocabulary {cfg.vocab_size} padded to "
+        f"{model.embed['unembed'].shape[1]}, hot rows {cfg.hot_vocab_rows} "
+        f"(DBG coverage {vr.coverage:.4f}), norm {cfg.norm}, remat "
+        f"{cfg.remat}), float32 masters and Adam moments on the card in "
+        f"{init_s:.1f} s")
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in pipe.batch(i).items()}
+               for i in range(1 + TRAIN_TIMED)]
+    train_step = make_train_step(cfg, OptConfig(**TRAIN_OPT))
+    events, last = [], {}
+    real_bw = k2_ops.gather_backward
+
+    def timed_bw(ids, grad, h, c, dtype):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_bw(ids, grad, h, c, dtype)
+        b.record()
+        events.append((a, b))
+        last.update(ids=ids, grad=grad, rows=(h, c))
+        return out
+
+    # on the host, so that the peak memory is the training's alone
+    before = {n: p.detach().to("cpu", copy=True)
+              for n, p in model.named_parameters()}
+    step_ms, metrics = [], []
+    k2_ops.gather_backward = timed_bw
+    _reset_launches()
+    try:
+        for i, batch in enumerate(batches):
+            _sync()
+            t0 = time.perf_counter()
+            m = train_step(model, opt, batch)
+            _sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                same = [n for n, p in model.named_parameters()
+                        if torch.equal(p.detach().cpu(), before[n])]
+                if same:
+                    raise AssertionError(f"step 1 left {same} unchanged")
+                del before
+                h = model.embed["hot"].shape[0]
+                read = torch.zeros(h + model.embed["cold"].shape[0],
+                                   dtype=torch.bool)
+                read[batch["tokens"].reshape(-1).long().cpu()] = True
+                g = torch.cat([model.embed["hot"].grad.cpu(),
+                               model.embed["cold"].grad.cpu()])
+                hit = (g != 0).any(dim=1)
+                if not (bool(hit[read].all()) and not bool(hit[~read].any())):
+                    raise AssertionError(
+                        f"embedding gradients on {int(hit.sum())} rows, "
+                        f"{int(read.sum())} read ({int((hit & read).sum())} "
+                        "of them)")
+                rows_read, rows_hot = int(read.sum()), int(read[:h].sum())
+                del g, read, hit
+    finally:
+        k2_ops.gather_backward = real_bw
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(metrics):
+        if not (all(map(lambda x: x == x and abs(x) != float("inf"),
+                        m.values())) and m["grad_norm"] > 0):
+            raise AssertionError(f"step {i}: {m}")
+    if launches["hot_gather"] != len(batches):
+        raise AssertionError(f"K2 launched {launches['hot_gather']} times over"
+                             f" {len(batches)} forward passes")
+    others = {k: n for k, n in launches.items() if k != "hot_gather" and n}
+    if others:
+        raise AssertionError(f"graph kernels launched on the LM path: {others}")
+    bw_ms = [a.elapsed_time(b) for a, b in events]
+    # the embedding backward on the last step's ids and gradient
+    ids, grad, (h, c) = last["ids"], last["grad"], last["rows"]
+    a = real_bw(ids, grad, h, c, grad.dtype)
+    b = real_bw(ids, grad, h, c, grad.dtype)
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise AssertionError("two embedding backward calls differ")
+    card32 = torch.cat(real_bw(ids, grad, h, c, torch.float32)).cpu()
+    cpu32 = torch.cat(real_bw(ids.cpu(), grad.cpu(), h, c, torch.float32))
+    bw_used = _band_used(card32, cpu32, 1e-6, 1e-30)
+    if not bw_used <= 1.0:
+        raise AssertionError(f"embedding backward off the CPU's by "
+                             f"{bw_used:.3g}x of 1e-6 relative")
+    del a, b, card32, cpu32, last
+    # the step split: the gradients (forward and backward) and the update,
+    # on CUDA events over two more steps; then one step's device kernels
+    # by class under torch.profiler, with the device's busy and idle share
+    split = []
+    for batch in batches[1:3]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        train_step.grads_of(model, batch)
+        ev[1].record()
+        train_step.apply(model, opt)
+        ev[2].record()
+        ev[2].synchronize()
+        split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    profiled = _kernel_classes(lambda: train_step(model, opt, batches[1]))
+    timed = step_ms[1:]
+    ms = statistics.median(timed)
+    t = TRAIN_BATCH * TRAIN_SEQ
+    n_mm = _matmul_params(model)
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * TRAIN_SEQ * t
+    flops = 6 * n_mm * t + attn
+    out = dict(
+        arch=cfg.arch_id, n_params=n_params, n_matmul_params=n_mm,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, tokens_per_step=t,
+        hot_vocab_rows=cfg.hot_vocab_rows, rows_read_step1=rows_read,
+        hot_rows_read_step1=rows_hot, opt=TRAIN_OPT, init_s=init_s,
+        first_step_ms=step_ms[0], step_ms=ms, step_ms_min=min(timed),
+        step_ms_max=max(timed), tokens_per_s=t / ms * 1e3,
+        flops_per_step=flops,
+        flops_formula="6*N_matmul*T + 12*L*H*Dh*S*T (model FLOPs: no remat "
+                      "recompute, full S x S scores), T = B*S",
+        tflops_per_s=flops / ms / 1e9,
+        bf16_peak_share=flops / ms / 1e-3 / BF16_OPS_PER_S,
+        peak_gib=peak / 2**30, embed_backward_ms=statistics.median(bw_ms[1:]),
+        embed_backward_ms_all=bw_ms, embed_backward_cpu_band_used=bw_used,
+        losses=[m["loss"] for m in metrics],
+        grad_norms=[m["grad_norm"] for m in metrics],
+        lrs=[m["lr"] for m in metrics], launches=launches,
+        grads_ms=[a for a, _ in split], update_ms=[b for _, b in split],
+        profiled_step=profiled)
+    del model, opt, batches
+    return out
+
+
+def _kernel_class(name):
+    n = name.lower()
+    for cls, keys in (("matmul", ("gemm", "cutlass", "nvjet", "xmma",
+                                  "sm90_", "cublas")),
+                      ("sort and segment sum", ("segment", "sort", "radix",
+                                                "searchsorted")),
+                      ("copies and casts", ("memcpy", "memset", "copy",
+                                            "fill")),
+                      ("reductions", ("reduce", "softmax", "logsumexp"))):
+        if any(k in n for k in keys):
+            return cls
+    return "elementwise"
+
+
+def _kernel_classes(fn):
+    """One call of ``fn`` under ``torch.profiler``: its wall time (synced),
+    the device time of its kernels by class (one stream, so their sum is
+    the device's busy time), the idle share and the heaviest kernels."""
+    import torch  # noqa: F401
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with warnings.catch_warnings():  # "Profiler clears events at the end..."
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    classes, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            cls = _kernel_class(e.name)
+            n, t = classes.get(cls, (0, 0.0))
+            classes[cls] = (n + 1, t + ms)
+            n, t = by_name.get(e.name[:80], (0, 0.0))
+            by_name[e.name[:80]] = (n + 1, t + ms)
+    busy = sum(t for _, t in classes.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return dict(wall_ms=wall_ms, busy_ms=busy,
+                idle_share=1.0 - busy / wall_ms if wall_ms else None,
+                launches=sum(n for n, _ in classes.values()),
+                classes={k: {"launches": n, "ms": t}
+                         for k, (n, t) in sorted(classes.items(),
+                                                 key=lambda kv: -kv[1][1])},
+                top=[(name, n, t) for name, (n, t) in top])
+
+
+def train_parity(device):
+    """Reduced Yi-9B (GQA) and OLMo-1B, remat on, from the same weights on
+    the CPU and the card: TRAIN_PARITY_STEPS float32 steps with loss and
+    grad norm within 1e-5 relative and every parameter within
+    PARITY_PARAM_ATOL; the forward logits at S = 1,024 within phase 14's
+    band.  Returns the worst shares of those bands."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.lm import model as model_mod
+    from repro_torch.train.step import OptConfig, init_opt, make_train_step
+
+    worst = dict(loss=0.0, grad_norm=0.0, params=0.0, forward=0.0)
+    for arch, kw in (("yi_9b", dict(n_kv_heads=2)), ("olmo_1b", {})):
+        cfg = reduced(get_config(arch), remat=True, **kw)
+        cpu = model_mod.init_params(cfg, seed=0, device="cpu")
+        card = model_mod.init_params(cfg, seed=0, device="cpu").to(device)
+        toks = torch.randint(0, cfg.vocab_size, (2, 1024), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            want, _ = model_mod.forward(cpu, toks)
+            got, _ = model_mod.forward(card, toks.to(device))
+        worst["forward"] = max(worst["forward"],
+                               _band_used(got.cpu(), want, 1e-4, 1e-5))
+        ts = make_train_step(cfg, OptConfig(lr=1e-3, warmup=2, total_steps=10,
+                                            compute_dtype="float32"))
+        o_cpu, o_card = init_opt(cpu), init_opt(card)
+        gen = torch.Generator().manual_seed(2)
+        for _ in range(TRAIN_PARITY_STEPS):
+            t = torch.randint(0, cfg.vocab_size, (4, 65), dtype=torch.int32,
+                              generator=gen)
+            batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+            w = ts(cpu, o_cpu, batch)
+            g = ts(card, o_card, {k: v.to(device) for k, v in batch.items()})
+            for key in ("loss", "grad_norm"):
+                worst[key] = max(worst[key], abs(float(g[key]) - float(w[key]))
+                                 / (1e-5 * abs(float(w[key]))))
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            diff = float((a.detach().cpu() - b.detach()).abs().max())
+            worst["params"] = max(worst["params"], diff / PARITY_PARAM_ATOL)
+        log(f"  {cfg.arch_id} reduced ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}): {TRAIN_PARITY_STEPS} float32 steps and the "
+            f"forward at S = 1,024, card against CPU")
+    if not all(v <= 1.0 for v in worst.values()):
+        raise AssertionError(f"card vs CPU training off its bands: {worst}")
+    return worst
+
+
+def train_driver(steps):
+    """``repro_torch.launch.train.main`` on the card: ``steps`` straight,
+    then preempted by a SIGTERM in step ``steps / 2`` (the driver's
+    checkpoint-and-exit path) and resumed to ``steps`` in another
+    directory; final parameters and optimizer state bitwise equal; the
+    straight run's return code 0 (loss decreased)."""
+    import contextlib
+    import io
+    import re
+    import signal
+
+    import torch
+
+    from repro_torch.launch import ckpt
+    from repro_torch.launch import train as train_mod
+
+    root = ROOT / "build" / "train_driver"
+    shutil.rmtree(root, ignore_errors=True)
+    half = steps // 2
+    args = DRIVER_ARGS + ["--steps", str(steps), "--ckpt-every", str(half)]
+    real = train_mod.step_mod.make_train_step
+
+    def preempted(cfg, oc):
+        fn, calls = real(cfg, oc), []
+
+        def ts(*a):
+            calls.append(1)
+            if len(calls) == half:
+                signal.raise_signal(signal.SIGTERM)
+            return fn(*a)
+        return ts
+
+    runs = {}
+    for name, d, make in (("straight", "a", real), ("preempted", "b", preempted),
+                          ("resumed", "b", real)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        train_mod.step_mod.make_train_step = make
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = train_mod.main(args + ["--ckpt-dir", str(root / d)])
+        finally:
+            train_mod.step_mod.make_train_step = real
+        runs[name] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                          out=buf.getvalue())
+        tail = [ln for ln in buf.getvalue().splitlines()
+                if "done" in ln or "resumed" in ln or "signal" in ln
+                or "arch=" in ln]
+        log(f"  driver {name} ({' '.join(args)}): return code {rc} in "
+            f"{runs[name]['seconds']:.1f} s; " + " | ".join(tail))
+        if name == "preempted" and (
+                "checkpoint + exit" not in buf.getvalue()
+                or ckpt.list_checkpoints(str(root / d))[-1]
+                != f"ckpt_{half:08d}"):
+            raise AssertionError(f"the driver did not stop with a checkpoint "
+                                 f"at step {half} on SIGTERM")
+    finals = []
+    for d in ("a", "b"):
+        path = root / d / ckpt.list_checkpoints(str(root / d))[-1]
+        finals.append([torch.load(path / f, weights_only=True)
+                       for f in ("params.pt", "opt.pt")])
+    (pa, oa), (pb, ob) = finals
+    same = (set(pa) == set(pb) and set(oa) == set(ob)
+            and all(torch.equal(pa[k], pb[k]) for k in pa)
+            and all(torch.equal(oa[k], ob[k]) for k in oa))
+    if not same or int(oa["step"]) != steps:
+        raise AssertionError("resumed run's final state differs from the "
+                             "straight run's")
+    if runs["straight"]["rc"] != 0 or runs["preempted"]["rc"] != 0:
+        raise AssertionError(f"driver return codes "
+                             f"{[r['rc'] for r in runs.values()]}")
+    found = re.search(r"loss ([0-9.]+) -> ([0-9.]+)", runs["straight"]["out"])
+    losses = re.findall(r"step (\d+) loss ([0-9.]+)", runs["straight"]["out"])
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(steps=steps, args=args,
+                first_fifth_loss=float(found.group(1)),
+                last_fifth_loss=float(found.group(2)),
+                first_loss=float(losses[0][1]), last_loss=float(losses[-1][1]),
+                return_codes={k: r["rc"] for k, r in runs.items()},
+                seconds={k: r["seconds"] for k, r in runs.items()},
+                bitwise_resume=same)
 
 
 # ---------------------------------------------------------------- main
@@ -3701,12 +4159,65 @@ def main() -> int:
     hb["device_ops_per_call"] = len(ops["hist_bin"])
     hb["dbg_bin_device_ops_per_call"] = len(ops["dbg_bin"])
     log(f"K2 timings done ({time.perf_counter() - t0:.1f} s)")
+
+    # 17. the full-sequence forward (A12.1) at full width; the launch counts
+    # are read from zero inside
+    t0 = time.perf_counter()
+    fw = lm_forward(model, served, lm.pop("step_logits"), FORWARD_REPS)
+    c = model.cfg
+    log(f"LM forward: {c.arch_id} ({c.n_layers} layers, d_model {c.d_model},"
+        f" {c.n_heads}/{c.n_kv_heads} heads) over the served tokens "
+        f"{tuple(served.shape)}: logits at {fw['band_used']:.3g} of the "
+        f"decode band (rtol 2e-2, atol 2e-4) against generate's steps, "
+        f"last_only at {fw['last_only_band_used']:.3g} of rtol 1e-4, atol "
+        f"1e-5; launches {fw['launches']}; {fw['ms']:.3f} ms per forward "
+        f"from an idle device (median of {FORWARD_REPS}), "
+        f"{fw['tflops_per_s']:.2f} TFLOP/s float32 "
+        f"({time.perf_counter() - t0:.1f} s)")
     del model, deg_t, b_t
     gc.collect()
     torch.cuda.empty_cache()
     log(json.dumps({"lm_serve": {k: v for k, v in lm.items()
                                  if k != "launches"},
-                    "k2": k2, "embed_lookup_launches": lookups}))
+                    "k2": k2, "embed_lookup_launches": lookups,
+                    "lm_forward": fw, "card": smi}))
+
+    # 18. training (A12.2): OLMo-1B at full width, the reduced card-vs-CPU
+    # steps, the driver's resume; the launch counts are read from zero
+    # inside, over the full-width steps
+    t0 = time.perf_counter()
+    tr = lm_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"LM training: {tr['arch']} ({tr['n_params']} parameters), "
+        f"{tr['tokens_per_step']} tokens per step, bf16 compute: "
+        f"{tr['step_ms']:.1f} ms per step (median [{tr['step_ms_min']:.1f}-"
+        f"{tr['step_ms_max']:.1f}] of {TRAIN_TIMED}, synced; first step "
+        f"{tr['first_step_ms']:.1f} ms), {tr['tokens_per_s']:.0f} tokens/s, "
+        f"{tr['tflops_per_s']:.1f} TFLOP/s ({tr['flops_formula']}; "
+        f"{tr['bf16_peak_share']:.3f} of the bf16 peak), peak device memory "
+        f"{tr['peak_gib']:.2f} GiB, embedding backward "
+        f"{tr['embed_backward_ms']:.3f} ms per step; losses "
+        f"{[round(x, 4) for x in tr['losses']]}; launches {tr['launches']}")
+    pf = tr["profiled_step"]
+    log(f"  step split (CUDA events, 2 steps): gradients "
+        f"{[round(x, 1) for x in tr['grads_ms']]} ms, update "
+        f"{[round(x, 1) for x in tr['update_ms']]} ms; one profiled step: "
+        f"wall {pf['wall_ms']:.1f} ms, device busy {pf['busy_ms']:.1f} ms "
+        f"(idle share {pf['idle_share']:.3f}), {pf['launches']} kernels")
+    for cls, c in pf["classes"].items():
+        log(f"    {c['ms']:9.2f} ms  {c['launches']:6d} x  {cls}")
+    for name, n, ms in pf["top"]:
+        log(f"    {ms:9.2f} ms  {n:6d} x  {name}")
+    parity = train_parity(dev)
+    log(f"  reduced card vs CPU: worst shares of the bands {parity}")
+    drv = train_driver(DRIVER_STEPS)
+    log(f"  driver m100: loss {drv['first_loss']:.4f} -> "
+        f"{drv['last_loss']:.4f} (first/last fifth {drv['first_fifth_loss']:.4f}"
+        f" -> {drv['last_fifth_loss']:.4f}), resume bitwise "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(json.dumps({"train": dict(tr, parity=parity, driver=drv),
+                    "card": smi}))
 
     timed = {
         "ell_edge_map": dict(t, max_abs_err=max(
@@ -3730,7 +4241,9 @@ def main() -> int:
         by_path = {"ell": ell_path[kname], "packed": packed[kname],
                    "stream": stream_path[kname], "serve": serve_path[kname],
                    "dist": dist_path[kname],
-                   "lm_serve": lm["launches"][kname]}
+                   "lm_serve": lm["launches"][kname],
+                   "lm_forward": fw["launches"][kname],
+                   "lm_train": tr["launches"][kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -3768,6 +4281,14 @@ def main() -> int:
         if "padded_ms" in m:  # K1 without the degrees: every lane
             entry["padded_ms"] = m["padded_ms"]
             entry["padded_bound_ms"] = m["padded_bound_ms"]
+        if kname == "hot_gather":  # the LM's forward and training
+            entry["lm_train"] = {
+                "launches": tr["launches"][kname],
+                "forward_passes": 1 + TRAIN_TIMED,
+                "backward": "plain (gather_backward)",
+                "backward_ms_per_step": tr["embed_backward_ms"],
+                "tokens_per_step": tr["tokens_per_step"],
+                "step_ms": tr["step_ms"]}
         if "at_zipf_8192" in m:
             entry["at_zipf_8192"] = {k: m["at_zipf_8192"][k] for k in (
                 "ms", "device_ms", "plain_ms", "library_ms",

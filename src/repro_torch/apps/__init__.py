@@ -1,8 +1,8 @@
 from . import engine  # noqa: F401
 from .bc import bc  # noqa: F401
-from .engine import (BACKENDS, EllBackend, FlatBackend,  # noqa: F401
-                     GraphArrays, edge_map_pull, edge_map_push, out_edge_sum,
-                     resolve_backend, to_arrays)
+from .engine import (BACKENDS, EdgeMapBackend, EllBackend,  # noqa: F401
+                     FlatBackend, GraphArrays, edge_map_pull, edge_map_push,
+                     out_edge_sum, resolve_backend, to_arrays, vertex_map)
 from .pagerank import pagerank  # noqa: F401
 from .pagerank_delta import pagerank_delta  # noqa: F401
 from .pagerank_dist import make_graph_mesh, pagerank_dist  # noqa: F401

@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, Dict, NamedTuple, Optional, Protocol, Tuple,
+                    Union, runtime_checkable)
 
 import numpy as np
 import torch
@@ -45,6 +46,7 @@ from ..kernels.edge_map.edge_map import reduce_identity
 from ..obs import trace as obs_trace
 
 __all__ = [
+    "EdgeMapBackend",
     "GraphArrays",
     "FlatBackend",
     "EllBackend",
@@ -59,6 +61,7 @@ __all__ = [
     "out_edge_sum",
     "set_edge_map_hook",
     "get_edge_map_hook",
+    "vertex_map",
     "frontier_density",
     "switch_by_density",
     "DENSITY_THRESHOLD",
@@ -204,6 +207,24 @@ def _push_flat(ga: GraphArrays, prop: torch.Tensor, *, reduce: str = "sum",
 # ---------------------------------------------------------------------------
 # Backends
 # ---------------------------------------------------------------------------
+
+@runtime_checkable
+class EdgeMapBackend(Protocol):
+    """What an edge-map backend must provide for the five apps to run.
+
+    ``pull``/``push`` are the two Ligra primitives.  Backends whose storage
+    is not edge-parallel (``repro_torch.pack``'s ``PackedBackend``)
+    additionally implement ``out_edge_sum`` — BC's backward dependency
+    gather — otherwise the dispatching :func:`out_edge_sum` takes the
+    edge-parallel path over the delegate ``out_src``/``out_dst`` arrays.
+    """
+
+    def pull(self, prop, *, reduce="sum", src_frontier=None,
+             use_weights=False, neutral=0.0): ...
+
+    def push(self, prop, *, reduce="sum", src_frontier=None,
+             use_weights=False, neutral=0.0, init=None): ...
+
 
 class _Delegate:
     """Field passthrough so backends look like GraphArrays to the apps
@@ -520,6 +541,16 @@ def out_edge_sum(ga, edge_val) -> torch.Tensor:
     if fn is not None:
         return fn(edge_val)
     return _segment(edge_val(ga.out_src, ga.out_dst), ga.out_ptr, "sum")
+
+
+def vertex_map(frontier: torch.Tensor, fn) -> torch.Tensor:
+    """Apply ``fn`` over active vertices (dense mask semantics): ``fn()``
+    where ``frontier`` is set, 0 elsewhere, in ``fn()``'s dtype (a boolean
+    ``fn()`` gives int32, as the reference's weakly typed 0 promotes it)."""
+    vals = fn()
+    if vals.dtype == torch.bool:
+        vals = vals.to(torch.int32)
+    return torch.where(frontier, vals, 0)
 
 
 def frontier_density(ga, frontier: torch.Tensor) -> torch.Tensor:

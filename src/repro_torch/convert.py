@@ -22,7 +22,8 @@ from .pack.layout import ColdSegment, HotGroup, PackedAdjacency
 
 __all__ = ["graph_from_numpy", "tiles_from_numpy",
            "packed_adjacency_from_numpy", "ell_groups_from_numpy",
-           "sharded_graph_from_numpy", "lm_params_from_numpy"]
+           "sharded_graph_from_numpy", "lm_params_from_numpy",
+           "lm_state_from_numpy", "opt_state_from_numpy"]
 
 
 def graph_from_numpy(in_indptr, in_indices, in_weights: Optional[np.ndarray],
@@ -214,9 +215,34 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig, device=None):
     matched (``load_state_dict(strict=True)``)."""
     from .lm.model import LM
 
-    state = {k: torch.from_numpy(np.array(a))
-             for k, a in lm_state_from_numpy(tree, cfg).items()}
+    state = {k: _tensor(a) for k, a in lm_state_from_numpy(tree, cfg).items()}
     model = LM(cfg, device=resolve_device(device),
                dtype=state["embed.unembed"].dtype)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A copy of ``a`` as a tensor; numpy's bfloat16 (``ml_dtypes``)
+    crosses as its 16-bit pattern."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def opt_state_from_numpy(opt_tree: Dict[str, Any], cfg: ArchConfig,
+                         device=None) -> Dict[str, Any]:
+    """The reference's optimizer state (``{"m", "v", "step"}``, numpy
+    leaves) as the port's ``train.step`` state on ``device`` (the card
+    unless the caller asks for the CPU): ``m`` and ``v`` by the names
+    :func:`lm_state_from_numpy` gives the params, ``step`` an int32
+    scalar."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {
+        key: {k: _tensor(a).to(dev)
+              for k, a in lm_state_from_numpy(opt_tree[key], cfg).items()}
+        for key in ("m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(opt_tree["step"])),
+                               dtype=torch.int32, device=dev)
+    return out

@@ -8,7 +8,9 @@ gather over ``hot`` / ``cold`` reads int32 or int64 ids through their
 stride, so a prefill step's column of the prompt needs no copy.  A table
 with no cold tail, or an unsplit one, clamps its ids first (the reference's
 function there differs from K2's zero rows) and goes through K2's hot-only
-entry.  The unembedding is a plain matrix product.
+entry.  The lookup is differentiable in the tables (``gather_rows``: K2
+forward, a deterministic plain backward), so training reaches them through
+the kernel.  The unembedding is a plain matrix product.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import math
 import torch
 from torch import nn
 
-from ..kernels.gather_embed import hot_gather, split_gather
+from ..kernels.gather_embed import gather_rows, split_gather
 
 __all__ = ["EmbedDims", "embed_init", "embed_lookup", "unembed"]
 
@@ -77,14 +79,14 @@ def embed_lookup(params: nn.ParameterDict, ids: torch.Tensor) -> torch.Tensor:
     flat = ids.reshape(-1)
     if "table" in params:
         table = params["table"]
-        rows = hot_gather(flat.clamp(0, table.shape[0] - 1).to(torch.int32),
-                          table)
+        rows = gather_rows(flat.clamp(0, table.shape[0] - 1).to(torch.int32),
+                           table)
     elif "cold" in params:
         rows = split_gather(params["hot"], params["cold"], flat)
     else:  # hot only: the reference reads row 0 for an id past the panel
         hot = params["hot"]
-        rows = hot_gather(torch.where(flat < hot.shape[0], flat, 0)
-                          .to(torch.int32), hot)
+        rows = gather_rows(torch.where(flat < hot.shape[0], flat, 0)
+                           .to(torch.int32), hot)
     return rows.reshape(*ids.shape, rows.shape[-1])
 
 

@@ -1,18 +1,20 @@
-"""Transformer building blocks of the dense decode path: norms, RoPE, GQA
-decode attention against a KV cache, gated MLPs.
+"""Transformer building blocks of the dense path: norms, RoPE, full-sequence
+causal GQA attention (flash-style blockwise), GQA decode attention against a
+KV cache, gated MLPs.
 
 Port of the dense part of ``repro.lm.layers``, with the reference's layout
 at every function (weights (d_in, d_out) applied as ``x @ w``, heads on the
 second-to-last axis) so the parity tests compare like with like.  Params are
 ``nn.ParameterDict`` / ``nn.ModuleDict`` trees with the reference's key
 names.  ``repro`` computes attention outside any Pallas kernel; so does the
-port (plain tensor ops).  The full-sequence paths (``mha``, blockwise
-attention, MLA, cross attention) wait for ROADMAP A12.
+port (plain tensor ops).  MLA, bidirectional and cross attention wait for
+ROADMAP A12.4 and A12.6.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,9 +22,9 @@ from torch import nn
 
 from .embed import _normal
 
-__all__ = ["AttnDims", "apply_norm", "attn_init", "dense_init", "mha_decode",
-           "mlp", "mlp_init", "nonparametric_ln", "norm_init", "rmsnorm",
-           "rope"]
+__all__ = ["AttnDims", "apply_norm", "attn_init", "dense_init", "mha",
+           "mha_decode", "mlp", "mlp_init", "nonparametric_ln", "norm_init",
+           "rmsnorm", "rope"]
 
 
 def dense_init(d_in: int, d_out: int, **kw) -> nn.ParameterDict:
@@ -101,6 +103,81 @@ def attn_init(d_model: int, dims: AttnDims, **kw) -> nn.ModuleDict:
         "v": dense_init(d_model, dims.n_kv * dims.d_head, **kw),
         "o": dense_init(dims.n_heads * dims.d_head, d_model, **kw),
     })
+
+
+def _blockwise_causal_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, block_q: int, block_k: int,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """Flash-style blockwise causal attention, O(S · block) memory.
+
+    q: (B, S, H, D); k, v: (B, S, Hkv, D), H = G · Hkv (query head
+    ``h·G + j`` reads KV head ``h``).  S must be a multiple of both blocks.
+    The reference's arithmetic step by step: scores in the inputs' dtype,
+    the running max, sum and accumulator in float32, the ``isfinite``
+    guards; ``window`` masks keys at or past that distance.  A key block
+    that every query of the block masks is skipped: its update is the
+    identity (``p`` is 0, ``alpha`` 1, or 0 on rows that have seen no key
+    yet), so the result is the one the reference's full scan gives.
+    """
+    b, s, h, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    g = h // hkv
+    if s % block_q or s % block_k:
+        raise ValueError(f"sequence {s} is not a multiple of the blocks "
+                         f"({block_q}, {block_k})")
+    scale = 1.0 / math.sqrt(d)
+    outs = []
+    for qi in range(s // block_q):
+        q0 = qi * block_q
+        qr = q[:, q0:q0 + block_q].reshape(b, block_q, hkv, g, d)
+        qpos = torch.arange(q0, q0 + block_q, device=q.device)
+        m = torch.full((b, block_q, h), float("-inf"), dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, block_q, h), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, block_q, h, dv), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(s // block_k):
+            k0 = ki * block_k
+            if k0 > q0 + block_q - 1:  # every key after every query
+                break
+            if window is not None and q0 - (k0 + block_k - 1) >= window:
+                continue  # every key out of every query's window
+            kr = k[:, k0:k0 + block_k]
+            vr = v[:, k0:k0 + block_k]
+            sc = torch.einsum("bqhgd,bkhd->bqhgk", qr, kr) * scale
+            sc = sc.reshape(b, block_q, h, block_k)
+            kpos = torch.arange(k0, k0 + block_k, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
+            sc = torch.where(mask[None, :, None, :], sc, float("-inf"))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            p = torch.where(torch.isfinite(m_new)[..., None], p, 0.0)
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            pr = p.reshape(b, block_q, hkv, g, block_k)
+            delta = torch.einsum("bqhgk,bkhd->bqhgd", pr, vr.float())
+            acc = acc * alpha[..., None] + delta.reshape(b, block_q, h, dv)
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def mha(params, x: torch.Tensor, dims: AttnDims, *, positions: torch.Tensor,
+        rope_theta: float = 10000.0, window: Optional[int] = None,
+        block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """Full-sequence causal (optionally sliding-window) GQA attention:
+    (B, S, d_model) → (B, S, d_model), blocks of ``min(512, S)``."""
+    b, s, _ = x.shape
+    q = (x @ params["q"]["w"]).reshape(b, s, dims.n_heads, dims.d_head)
+    k = (x @ params["k"]["w"]).reshape(b, s, dims.n_kv, dims.d_head)
+    v = (x @ params["v"]["w"]).reshape(b, s, dims.n_kv, dims.d_head)
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    out = _blockwise_causal_attn(q, k, v, block_q=min(block_q, s),
+                                 block_k=min(block_k, s), window=window)
+    return out.reshape(b, s, -1) @ params["o"]["w"]
 
 
 def mha_decode(params, x: torch.Tensor, dims: AttnDims,

@@ -1,6 +1,7 @@
-"""The dense decoder LM on one device: init, KV cache and one decode step.
+"""The dense decoder LM on one device: init, the full-sequence forward and
+its loss, the KV cache and one decode step.
 
-Port of the dense decode part of ``repro.lm.model``.  The reference stacks
+Port of the dense part of ``repro.lm.model``.  The reference stacks
 each pattern period's params on a leading axis and scans over periods; the
 port keeps one :class:`Block` per layer in an ``nn.ModuleList`` (layer
 ``period · len(pattern) + slot``, then the tail layers), and
@@ -9,23 +10,29 @@ follow the reference's tree (``embed.hot``, ``layers.3.mix.q.w``,
 ``layers.3.chan.gate.w``, ``final_norm.scale``).
 
 Only the ``attn`` mixer and the ``mlp`` channel are ported; every other
-block kind raises ``NotImplementedError`` naming the ROADMAP item that
-carries it.  The full-sequence ``forward`` and training are ROADMAP A12.1
-and A12.2.
+block kind (``local`` ring attention, MLA, MoE, SSD, RG-LRU, cross
+attention, VLM prefixes) raises ``NotImplementedError`` naming the ROADMAP
+item that carries it (A12.3 to A12.6).  ``cfg.remat`` recomputes each layer
+in the backward pass (``torch.utils.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint`` per period): the layer's parameters enter
+the checkpoint as inputs, so a recompute reads the very tensors the forward
+read, cast copies included (``train.step``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import embed as embed_mod
 from . import layers as L
 
-__all__ = ["Block", "LM", "decode_step", "init_cache", "init_params"]
+__all__ = ["Block", "LM", "decode_step", "forward", "init_cache",
+           "init_params", "loss_fn", "unembed_apply"]
 
 #: Block kinds the reference has and this slice does not, by ROADMAP item.
 _LATER = {
@@ -77,6 +84,18 @@ class Block(nn.Module):
         self.norm2 = L.norm_init(cfg.norm, cfg.d_model, **kw)
         self.chan = L.mlp_init(cfg.d_model, cfg.d_ff, gated=True, **kw)
 
+    def forward(self, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        """The full-sequence layer (the reference's ``_layer_apply`` for
+        ``attn`` + ``mlp``): (B, S, d_model) → (B, S, d_model)."""
+        dt = x.dtype  # the residual stream keeps its dtype
+        h = L.apply_norm(cfg.norm, self.norm1, x)
+        y = L.mha(self.mix, h, _attn_dims(cfg), positions=positions,
+                  rope_theta=cfg.rope_theta)
+        x = x + y.to(dt)
+        h2 = L.apply_norm(cfg.norm, self.norm2, x)
+        return x + L.mlp(self.chan, h2, act=cfg.act).to(dt)
+
     def decode(self, cfg: ArchConfig, x: torch.Tensor, cache: Dict[str, Any],
                cur_len: int) -> torch.Tensor:
         dt = x.dtype  # the residual stream keeps its dtype
@@ -112,6 +131,99 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return LM(cfg, generator=gen, device=dev, dtype=dtype)
+
+
+def _block_with(block: Block, names, cfg, x, positions, *tensors):
+    return torch.func.functional_call(block, dict(zip(names, tensors)),
+                                      (cfg, x, positions))
+
+
+def _layer(block: Block, cfg: ArchConfig, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return block(cfg, x, positions)
+    # the tensors the block holds now (a cast copy inside train.step's
+    # functional_call) go in as inputs and are read again by the recompute
+    names, tensors = zip(*block.named_parameters())
+    return checkpoint(_block_with, block, names, cfg, x, positions, *tensors,
+                      use_reentrant=False)
+
+
+def forward(model: LM, tokens: torch.Tensor, *,
+            prefix: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None, last_only: bool = False,
+            return_hidden: bool = False):
+    """Logits (B, S, padded V) and the auxiliary loss (a float32 scalar,
+    0 for dense layers) of ``tokens`` (B, S) integer, one K2 launch on the
+    card for the embedding.  ``last_only``: unembed the final position
+    only (prefill serving); ``return_hidden``: the final-normed hidden
+    states instead of logits (the chunked loss)."""
+    cfg = model.cfg
+    if prefix is not None:
+        raise _not_yet("prefix", cfg)
+    if frames is not None:
+        raise _not_yet("cross", cfg)
+    x = embed_mod.embed_lookup(model.embed, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    for block in model.layers:
+        x = _layer(block, cfg, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = L.apply_norm(cfg.norm, model.final_norm, x)
+    if return_hidden:
+        return x, aux
+    if last_only:
+        x = x[:, -1:]
+    return unembed_apply(model, x), aux
+
+
+def unembed_apply(model: LM, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) → (B, S, padded V) logits."""
+    return embed_mod.unembed(model.embed, x)
+
+
+def _ce_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of ``labels`` under ``logits``, in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def _chunk_ce(w: torch.Tensor, hx: torch.Tensor,
+              lx: torch.Tensor) -> torch.Tensor:
+    return _ce_sum(hx @ w, lx)
+
+
+def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor, *,
+            prefix: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None, aux_weight: float = 0.01,
+            loss_chunk: int = 0) -> torch.Tensor:
+    """Next-token cross-entropy (a float32 scalar) of ``labels`` (B, S).
+
+    ``loss_chunk`` > 0 projects onto the vocabulary and takes the
+    logsumexp per chunk of that many positions under a checkpoint, so the
+    (B, S, V) logits are never held; positions past the last whole chunk
+    are left out, as in the reference."""
+    cfg = model.cfg
+    if loss_chunk:
+        hidden, aux = forward(model, tokens, prefix=prefix, frames=frames,
+                              return_hidden=True)
+        b, s, _ = hidden.shape
+        c = min(loss_chunk, s)
+        nc = s // c
+        w = model.embed["unembed"]
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(nc):
+            sl = slice(i * c, (i + 1) * c)
+            total = total + checkpoint(_chunk_ce, w, hidden[:, sl],
+                                       labels[:, sl], use_reentrant=False)
+        ce = total / (b * nc * c)
+    else:
+        logits, aux = forward(model, tokens, prefix=prefix, frames=frames)
+        ce = _ce_sum(logits, labels) / labels.numel()
+    return ce + aux_weight * aux / max(1, cfg.n_layers)
 
 
 def init_cache(cfg: ArchConfig, b: int, max_len: int, *, device=None,

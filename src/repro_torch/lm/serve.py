@@ -1,8 +1,8 @@
 """LM serving: greedy generation through the decode path.
 
 Port of ``repro.lm.serve``.  Prefill runs token by token through
-``decode_step`` (the reference's own choice: identical math to a full
-forward, which is ROADMAP A12.1), then greedy decode.  Every step embeds its
+``decode_step`` (the reference's own choice: identical math to
+``model.forward``), then greedy decode.  Every step embeds its
 token with one K2 launch on the card.
 """
 from __future__ import annotations

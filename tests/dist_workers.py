@@ -3,6 +3,8 @@
     python tests/dist_workers.py jax OUT.npz D
     python tests/dist_workers.py torch-graph OUT_DIR RANK WORLD INIT_FILE
     python tests/dist_workers.py torch-stream OUT_DIR RANK WORLD INIT_FILE
+    python tests/dist_workers.py jax-compress OUT.npz D
+    python tests/dist_workers.py torch-compress OUT_DIR RANK WORLD INIT_FILE
 
 ``jax`` computes the reference's sharded edge maps, delta-segment maps and
 PageRank at D host devices (every layout's outputs under one ``jax.jit``,
@@ -10,7 +12,10 @@ its Pallas kernels in interpret mode: on ``ell`` one weighting per
 reduction, as each interpreted kernel costs seconds to trace).  ``torch-graph`` and
 ``torch-stream`` are one rank of the port's engine in a gloo group (a
 ``file://`` rendezvous): the same cases, and the sharded stream against
-the single-device service.  Each writes its outputs to an npz file that the
+the single-device service.  ``jax-compress`` and ``torch-compress`` are
+the int8 compressed mean over D participants: the reference's
+``compressed_psum`` under ``shard_map``, and one rank of the port's
+``compressed_all_reduce`` in a gloo group.  Each writes its outputs to an npz file that the
 tests compare.  Not collected by pytest (no ``test_`` prefix).
 """
 import os
@@ -305,12 +310,59 @@ def run_torch_stream(out_dir, rank, world, init_file):
     tdist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# the int8 compressed mean (train.compress)
+# ---------------------------------------------------------------------------
+
+def compress_inputs(d):
+    """Each participant's rows: a normal draw, one with a wide dynamic range
+    and one whose largest entry lies on a single participant."""
+    rng = np.random.default_rng(11)
+    wide = rng.normal(size=(d, 1000)) * np.logspace(-4, 2, 1000)
+    spike = rng.normal(size=(d, 257)) * 1e-3
+    spike[d - 1, 5] = 40.0
+    return {"normal": rng.normal(size=(d, 4096)).astype(np.float32),
+            "wide": wide.astype(np.float32), "spike": spike.astype(np.float32)}
+
+
+def run_jax_compress(out_path, d):
+    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={d}"
+    import jax
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from repro.train.compress import compressed_psum
+
+    mesh = jax.make_mesh((d,), ("pod",))
+    f = jax.jit(shard_map(lambda a: compressed_psum(a[0], "pod")[None],
+                          mesh=mesh, in_specs=P("pod"), out_specs=P("pod")))
+    np.savez(out_path, **{k: np.asarray(f(x))
+                          for k, x in compress_inputs(d).items()})
+
+
+def run_torch_compress(out_dir, rank, world, init_file):
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.train.compress import compressed_all_reduce
+
+    tdist.init_process_group("gloo", init_method=f"file://{init_file}",
+                             rank=rank, world_size=world)
+    out = {k: compressed_all_reduce(torch.from_numpy(x[rank])).numpy()
+           for k, x in compress_inputs(world).items()}
+    np.savez(os.path.join(out_dir, f"torch_compress_{world}_{rank}.npz"),
+             **out)
+    tdist.destroy_process_group()
+
+
 if __name__ == "__main__":
     job = sys.argv[1]
-    if job == "jax":
-        run_jax(sys.argv[2], int(sys.argv[3]))
+    if job in ("jax", "jax-compress"):
+        {"jax": run_jax, "jax-compress": run_jax_compress}[job](
+            sys.argv[2], int(sys.argv[3]))
     else:
         fn = {"torch-graph": run_torch_graph,
-              "torch-stream": run_torch_stream}[job]
+              "torch-stream": run_torch_stream,
+              "torch-compress": run_torch_compress}[job]
         fn(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     print("OK")

@@ -157,3 +157,36 @@ def test_to_arrays_knobs_and_backends():
     assert (eb.row_tile, eb.width_tile) == (32, 64)
     ga = apps.to_arrays(pg, backend="arrays", device="cpu")
     assert ga.in_w is ga.out_w  # one ones plane for an unweighted graph
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.bool_])
+def test_vertex_map_matches_the_reference(dtype):
+    rng = np.random.default_rng(9)
+    frontier = rng.random(257) < 0.4
+    vals = (rng.normal(size=257) * 10).astype(dtype)
+    want = np.asarray(ref_apps.engine.vertex_map(jnp.asarray(frontier),
+                                                 lambda: jnp.asarray(vals)))
+    got = apps.vertex_map(torch.from_numpy(frontier),
+                          lambda: torch.from_numpy(vals)).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_engine_exports_match_the_reference():
+    """``vertex_map`` and the ``EdgeMapBackend`` protocol are exported as
+    the reference exports them; every backend the port builds satisfies
+    the protocol, a bare object does not."""
+    from repro_torch.apps import engine
+
+    assert apps.EdgeMapBackend is engine.EdgeMapBackend
+    assert apps.vertex_map is engine.vertex_map
+    assert {"EdgeMapBackend", "vertex_map"} <= set(engine.__all__)
+    assert set(ref_apps.engine.__all__) <= set(engine.__all__)
+    g = _graph("lj", "dbg", False)
+    pg = graph_from_numpy(g.in_csr.indptr, g.in_csr.indices, g.in_csr.weights,
+                          g.out_csr.indptr, g.out_csr.indices,
+                          g.out_csr.weights, g.name)
+    for backend in ("flat", "ell", "packed"):
+        b = apps.to_arrays(pg, backend=backend, device="cpu")
+        assert isinstance(b, apps.EdgeMapBackend), backend
+    assert not isinstance(object(), apps.EdgeMapBackend)

@@ -58,7 +58,7 @@ def test_the_source_scan_covers_every_package_of_the_port():
     scanned = {p.relative_to(PORT).parts[0] for p in SOURCES if PORT in p.parents}
     for pkg in ("apps", "cachesim", "configs", "core", "data", "dist",
                 "graph", "kernels", "launch", "lm", "obs", "pack",
-                "roofline", "serve", "stream", "tune"):
+                "roofline", "serve", "stream", "train", "tune"):
         assert pkg in scanned
     assert ROOT / "chip_smoke.py" in SOURCES
 
@@ -116,6 +116,15 @@ def test_quickstart_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         quickstart.main(["--scale", "test"])
+
+
+def test_train_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())  # raised before any step
 
 
 def test_kernel_wrapper_takes_plain_version_only_for_cpu_tensors():
