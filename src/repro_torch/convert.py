@@ -193,11 +193,19 @@ def lm_state_from_numpy(tree: Dict[str, Any],
     """The reference's LM params pytree (numpy leaves) as the port's
     state-dict names.  ``periods[slot]`` is unstacked along axis 0 into
     layer ``period * len(pattern) + slot``; ``tail[i]`` becomes layer
-    ``n_periods * len(pattern) + i``; ``embed`` and ``final_norm`` keep
-    their names."""
+    ``n_periods * len(pattern) + i``; the stacked ``encoder`` is unstacked
+    into ``encoder.{i}``; every other subtree (``embed``, ``final_norm``,
+    ``enc_norm``, ``prefix_proj``) keeps its name.  Bare leaves (the MoE's
+    stacked experts, SSD's ``A_log``, RG-LRU's ``lam``, ...) carry across
+    like any other."""
     plen = len(cfg.layer_pattern())
-    state = dict(_leaves(tree["embed"], "embed."))
-    state.update(_leaves(tree.get("final_norm", {}), "final_norm."))
+    state = {}
+    for key, sub in tree.items():
+        if key not in ("periods", "tail", "encoder"):
+            state.update(_leaves(sub, f"{key}."))
+    for name, a in _leaves(tree.get("encoder", {}), ""):
+        for i in range(a.shape[0]):
+            state[f"encoder.{i}.{name}"] = a[i]
     for slot, sub in enumerate(tree["periods"]):
         for name, a in _leaves(sub, ""):
             for period in range(a.shape[0]):

@@ -1,14 +1,17 @@
-"""Transformer building blocks of the dense path: norms, RoPE, full-sequence
-causal GQA attention (flash-style blockwise), GQA decode attention against a
-KV cache, gated MLPs.
+"""Transformer building blocks: norms, RoPE, full-sequence causal GQA
+attention (flash-style blockwise, optionally sliding-window), the encoder's
+unmasked blockwise attention, cross attention, GQA decode attention against
+a KV cache, DeepSeek-V2's MLA (full sequence and latent-cache decode),
+gated MLPs.
 
-Port of the dense part of ``repro.lm.layers``, with the reference's layout
-at every function (weights (d_in, d_out) applied as ``x @ w``, heads on the
-second-to-last axis) so the parity tests compare like with like.  Params are
+Port of ``repro.lm.layers``, with the reference's layout at every function
+(weights (d_in, d_out) applied as ``x @ w``, heads on the second-to-last
+axis) so the parity tests compare like with like.  Params are
 ``nn.ParameterDict`` / ``nn.ModuleDict`` trees with the reference's key
 names.  ``repro`` computes attention outside any Pallas kernel; so does the
-port (plain tensor ops).  MLA, bidirectional and cross attention wait for
-ROADMAP A12.4 and A12.6.
+port (plain tensor ops, no library attention: the parity bands are set
+against the reference's own step-by-step arithmetic).  Decode writes its
+caches in place.
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ from torch import nn
 
 from .embed import _normal
 
-__all__ = ["AttnDims", "apply_norm", "attn_init", "dense_init", "mha",
-           "mha_decode", "mlp", "mlp_init", "nonparametric_ln", "norm_init",
+__all__ = ["AttnDims", "MlaDims", "apply_norm", "attn_init", "cross_attn",
+           "dense_init", "mha", "mha_bidir", "mha_decode", "mla", "mla_decode",
+           "mla_init", "mlp", "mlp_init", "nonparametric_ln", "norm_init",
            "rmsnorm", "rope"]
 
 
@@ -193,9 +197,7 @@ def mha_decode(params, x: torch.Tensor, dims: AttnDims,
     """
     b = x.shape[0]
     s_max = cache_k.shape[1]
-    if not 0 <= cur_len < s_max:
-        raise ValueError(f"cache holds {s_max} positions; cannot write "
-                         f"position {cur_len}")
+    _check_position(s_max, cur_len)
     q = (x @ params["q"]["w"]).reshape(b, 1, dims.n_heads, dims.d_head)
     k = (x @ params["k"]["w"]).reshape(b, 1, dims.n_kv, dims.d_head)
     v = (x @ params["v"]["w"]).reshape(b, 1, dims.n_kv, dims.d_head)
@@ -214,6 +216,173 @@ def mha_decode(params, x: torch.Tensor, dims: AttnDims,
     out = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())
     out = out.reshape(b, 1, dims.n_heads * dims.d_head).to(x.dtype)
     return out @ params["o"]["w"]
+
+
+def _check_position(s_max: int, cur_len: int) -> None:
+    """A linear cache of ``s_max`` positions takes position ``cur_len``, or
+    raises (the reference's cache write clamps an out-of-range position)."""
+    if not 0 <= cur_len < s_max:
+        raise ValueError(f"cache holds {s_max} positions; cannot write "
+                         f"position {cur_len}")
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the promoted dtype of the two, as JAX promotes a
+    bfloat16 cache against float32 weights (torch's matmul does not)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
+def _blockwise_attn_nomask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, block_q: int, block_k: int) -> torch.Tensor:
+    """Unmasked blockwise softmax attention (the encoder's): the reference's
+    online softmax without masks or ``isfinite`` guards.  q: (B, S, H, D);
+    k, v: (B, S, Hkv, D); S a multiple of both blocks."""
+    b, s, h, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    g = h // hkv
+    if s % block_q or s % block_k:
+        raise ValueError(f"sequence {s} is not a multiple of the blocks "
+                         f"({block_q}, {block_k})")
+    scale = 1.0 / math.sqrt(d)
+    outs = []
+    for q0 in range(0, s, block_q):
+        qr = q[:, q0:q0 + block_q].reshape(b, block_q, hkv, g, d)
+        m = torch.full((b, block_q, h), float("-inf"), dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, block_q, h), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, block_q, h, dv), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, s, block_k):
+            sc = torch.einsum("bqhgd,bkhd->bqhgk", qr,
+                              k[:, k0:k0 + block_k]) * scale
+            sc = sc.reshape(b, block_q, h, block_k)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pr = p.reshape(b, block_q, hkv, g, block_k)
+            delta = torch.einsum("bqhgk,bkhd->bqhgd", pr,
+                                 v[:, k0:k0 + block_k].float())
+            acc = acc * alpha[..., None] + delta.reshape(b, block_q, h, dv)
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def mha_bidir(params, x: torch.Tensor, dims: AttnDims, *,
+              positions: torch.Tensor, rope_theta: float = 10000.0,
+              block: int = 512) -> torch.Tensor:
+    """Bidirectional (encoder) attention, blockwise over keys in blocks of
+    ``min(block, S)``: (B, S, d_model) → (B, S, d_model)."""
+    b, s, _ = x.shape
+    q = (x @ params["q"]["w"]).reshape(b, s, dims.n_heads, dims.d_head)
+    k = (x @ params["k"]["w"]).reshape(b, s, dims.n_kv, dims.d_head)
+    v = (x @ params["v"]["w"]).reshape(b, s, dims.n_kv, dims.d_head)
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    bq = min(block, s)
+    out = _blockwise_attn_nomask(q, k, v, block_q=bq, block_k=bq)
+    return out.reshape(b, s, -1) @ params["o"]["w"]
+
+
+def cross_attn(params, x: torch.Tensor, memory: torch.Tensor,
+               dims: AttnDims) -> torch.Tensor:
+    """Encoder-decoder cross attention: queries from ``x`` (B, S, d_model),
+    keys and values from ``memory`` (B, S_mem, d_model), a full softmax
+    over the memory, no positions."""
+    b, s, _ = x.shape
+    sm = memory.shape[1]
+    q = (x @ params["q"]["w"]).reshape(b, s, dims.n_heads, dims.d_head)
+    k = (memory @ params["k"]["w"]).reshape(b, sm, dims.n_kv, dims.d_head)
+    v = (memory @ params["v"]["w"]).reshape(b, sm, dims.n_kv, dims.d_head)
+    g = dims.n_heads // dims.n_kv
+    qr = q.reshape(b, s, dims.n_kv, g, dims.d_head)
+    sc = torch.einsum("bqhgd,bkhd->bqhgk", qr, k) / math.sqrt(dims.d_head)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v).reshape(b, s, -1)
+    return out.to(x.dtype) @ params["o"]["w"]
+
+
+# ---------------------------------------------------------------- MLA
+@dataclasses.dataclass(frozen=True)
+class MlaDims:
+    """DeepSeek-V2's multi-head latent attention."""
+    n_heads: int
+    kv_lora: int  # latent width (512 for V2-Lite)
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+
+
+def mla_init(d_model: int, dims: MlaDims, **kw) -> nn.ModuleDict:
+    h = dims.n_heads
+    return nn.ModuleDict({
+        "q": dense_init(d_model, h * (dims.d_nope + dims.d_rope), **kw),
+        "kv_down": dense_init(d_model, dims.kv_lora, **kw),
+        "k_rope": dense_init(d_model, dims.d_rope, **kw),
+        "k_up": dense_init(dims.kv_lora, h * dims.d_nope, **kw),
+        "v_up": dense_init(dims.kv_lora, h * dims.d_v, **kw),
+        "o": dense_init(h * dims.d_v, d_model, **kw),
+    })
+
+
+def mla(params, x: torch.Tensor, dims: MlaDims, *, positions: torch.Tensor,
+        rope_theta: float = 10000.0, block_q: int = 512,
+        block_k: int = 512) -> torch.Tensor:
+    """Full-sequence causal MLA through the blockwise causal attention: keys
+    ``[k_nope | k_rope]`` (one rotated ``k_rope`` head broadcast to every
+    head) of head dim ``d_nope + d_rope``, values of ``d_v`` decompressed
+    from the latent."""
+    b, s, _ = x.shape
+    h = dims.n_heads
+    q = (x @ params["q"]["w"]).reshape(b, s, h, dims.d_nope + dims.d_rope)
+    q_nope, q_rope = q[..., :dims.d_nope], q[..., dims.d_nope:]
+    q_full = torch.cat([q_nope, rope(q_rope, positions, rope_theta)], dim=-1)
+    latent = x @ params["kv_down"]["w"]  # (B, S, kv_lora)
+    k_rope = rope((x @ params["k_rope"]["w"])[:, :, None, :], positions,
+                  rope_theta)
+    k_nope = (latent @ params["k_up"]["w"]).reshape(b, s, h, dims.d_nope)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dims.d_rope)], dim=-1)
+    v = (latent @ params["v_up"]["w"]).reshape(b, s, h, dims.d_v)
+    out = _blockwise_causal_attn(q_full, k_full, v, block_q=min(block_q, s),
+                                 block_k=min(block_k, s))
+    return out.reshape(b, s, -1) @ params["o"]["w"]
+
+
+def mla_decode(params, x: torch.Tensor, dims: MlaDims,
+               cache_latent: torch.Tensor, cache_krope: torch.Tensor,
+               cur_len: int, *, rope_theta: float = 10000.0) -> torch.Tensor:
+    """One-token MLA decode against the latent cache (B, S_max, kv_lora) +
+    (B, S_max, d_rope), written at ``cur_len`` IN PLACE.  Every step
+    decompresses the whole latent cache into keys and values, as the
+    reference does; scores in float32 over ``S_max``, ``-inf`` past
+    ``cur_len``, scaled by ``sqrt(d_nope + d_rope)``."""
+    b = x.shape[0]
+    h = dims.n_heads
+    s_max = cache_latent.shape[1]
+    _check_position(s_max, cur_len)
+    q = (x @ params["q"]["w"]).reshape(b, 1, h, dims.d_nope + dims.d_rope)
+    q_nope, q_rope = q[..., :dims.d_nope], q[..., dims.d_nope:]
+    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
+    q_rope = rope(q_rope, pos, rope_theta)
+    latent_t = x @ params["kv_down"]["w"]  # (B, 1, kv_lora)
+    krope_t = rope((x @ params["k_rope"]["w"])[:, :, None, :], pos,
+                   rope_theta)[:, :, 0]
+    cache_latent[:, cur_len] = latent_t[:, 0].to(cache_latent.dtype)
+    cache_krope[:, cur_len] = krope_t[:, 0].to(cache_krope.dtype)
+    k_nope = _mm(cache_latent, params["k_up"]["w"]).reshape(
+        b, s_max, h, dims.d_nope)
+    v = _mm(cache_latent, params["v_up"]["w"]).reshape(b, s_max, h, dims.d_v)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+    sc = sc + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                           cache_krope.float())
+    sc = sc / math.sqrt(dims.d_nope + dims.d_rope)
+    valid = torch.arange(s_max, device=x.device) <= cur_len
+    sc = sc.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.reshape(b, 1, -1).to(x.dtype) @ params["o"]["w"]
 
 
 # ---------------------------------------------------------------- MLP

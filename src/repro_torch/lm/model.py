@@ -1,26 +1,31 @@
-"""The dense decoder LM on one device: init, the full-sequence forward and
-its loss, the KV cache and one decode step.
+"""The decoder LM on one device, every block kind of the repo's
+configurations: init, the full-sequence forward and its loss, the caches
+and one decode step.
 
-Port of the dense part of ``repro.lm.model``.  The reference stacks
-each pattern period's params on a leading axis and scans over periods; the
-port keeps one :class:`Block` per layer in an ``nn.ModuleList`` (layer
-``period · len(pattern) + slot``, then the tail layers), and
+Port of ``repro.lm.model``.  A layer is a token mixer (``attn``, ``local``
+sliding-window attention with a ring cache, ``mla``, ``ssd``, ``rglru`` or
+``none``), an optional cross attention over an encoder's memory (the
+enc-dec stub) and a channel mixer (``mlp``, ``moe`` or ``none``), in the
+``cfg.layer_pattern()``.  The reference stacks each pattern period's params
+on a leading axis and scans over periods; the port keeps one :class:`Block`
+per layer in an ``nn.ModuleList`` (layer ``period · len(pattern) + slot``,
+then the tail layers; the encoder's layers likewise), and
 ``convert.lm_params_from_numpy`` is where the two layouts meet.  Param names
 follow the reference's tree (``embed.hot``, ``layers.3.mix.q.w``,
-``layers.3.chan.gate.w``, ``final_norm.scale``).
+``layers.3.chan.gate``, ``encoder.1.mix.q.w``, ``final_norm.scale``).  The
+VLM stub prepends ``prefix @ prefix_proj`` to the token embeddings; the
+enc-dec stub encodes ``frames`` with bidirectional layers.
 
-Only the ``attn`` mixer and the ``mlp`` channel are ported; every other
-block kind (``local`` ring attention, MLA, MoE, SSD, RG-LRU, cross
-attention, VLM prefixes) raises ``NotImplementedError`` naming the ROADMAP
-item that carries it (A12.3 to A12.6).  ``cfg.remat`` recomputes each layer
-in the backward pass (``torch.utils.checkpoint``, the counterpart of the
-reference's ``jax.checkpoint`` per period): the layer's parameters enter
-the checkpoint as inputs, so a recompute reads the very tensors the forward
-read, cast copies included (``train.step``).
+``cfg.remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` per period): the layer's parameters enter the checkpoint
+as inputs, so a recompute reads the very tensors the forward read, cast
+copies included (``train.step``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,95 +35,221 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import embed as embed_mod
 from . import layers as L
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 
-__all__ = ["Block", "LM", "decode_step", "forward", "init_cache",
-           "init_params", "loss_fn", "unembed_apply"]
+__all__ = ["Block", "LM", "decode_step", "forward", "has_linear_cache",
+           "init_cache", "init_params", "loss_fn", "unembed_apply"]
 
-#: Block kinds the reference has and this slice does not, by ROADMAP item.
-_LATER = {
-    "local": "A12.3 (local ring attention)",
-    "mla": "A12.4 (MLA and MoE)",
-    "moe": "A12.4 (MLA and MoE)",
-    "ssd": "A12.5 (SSD and RG-LRU)",
-    "rglru": "A12.5 (SSD and RG-LRU)",
-    "cross": "A12.6 (enc-dec and VLM stubs)",
-    "prefix": "A12.6 (enc-dec and VLM stubs)",
-}
-
-
-def _not_yet(kind: str, cfg: ArchConfig):
-    return NotImplementedError(
-        f"{cfg.arch_id}: '{kind}' is not ported yet (ROADMAP {_LATER[kind]}); "
-        "repro_torch.lm runs dense attn + mlp decoders")
+#: The encoder-decoder stub's cross-attention memory in the decode cache:
+#: zeros over a fixed S_enc, as the reference allocates it.
+CROSS_MEMORY = 4096
 
 
 def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
     return L.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
+def _mla_dims(cfg: ArchConfig) -> L.MlaDims:
+    return L.MlaDims(cfg.n_heads, cfg.kv_lora, cfg.mla_d_nope, cfg.mla_d_rope,
+                     cfg.mla_d_v)
+
+
+def _ssd_dims(cfg: ArchConfig) -> ssm_mod.SsdDims:
+    return ssm_mod.SsdDims(cfg.d_model, cfg.ssm_state, cfg.ssm_d_head,
+                           cfg.ssm_expand, cfg.ssm_chunk)
+
+
+def _rglru_dims(cfg: ArchConfig) -> ssm_mod.RglruDims:
+    return ssm_mod.RglruDims(cfg.d_model)
+
+
+def _moe_dims(cfg: ArchConfig) -> moe_mod.MoeDims:
+    return moe_mod.MoeDims(cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                           cfg.n_experts, cfg.top_k, cfg.n_shared_experts,
+                           capacity_factor=cfg.capacity_factor)
+
+
 def _embed_dims(cfg: ArchConfig) -> embed_mod.EmbedDims:
     return embed_mod.EmbedDims(cfg.vocab_size, cfg.d_model, cfg.hot_vocab_rows)
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    for mixer, channel in cfg.layer_pattern():
-        for kind, ok in ((mixer, ("attn",)), (channel, ("mlp",))):
-            if kind not in ok:
-                if kind in _LATER:
-                    raise _not_yet(kind, cfg)
-                raise ValueError(f"{cfg.arch_id}: block kind {kind!r} is "
-                                 "not ported")
-    if cfg.n_enc_layers:
-        raise _not_yet("cross", cfg)
-    if cfg.prefix_len:
-        raise _not_yet("prefix", cfg)
-
-
 class Block(nn.Module):
-    """One pre-norm ``attn`` + gated ``mlp`` layer."""
+    """One pre-norm layer: ``norm1`` and the token mixer ``mix``; with
+    ``cross``, ``norm_x`` and the cross attention ``cross``; ``norm2`` and
+    the channel mixer ``chan`` unless the channel is ``none``."""
 
-    def __init__(self, cfg: ArchConfig, **kw):
+    def __init__(self, cfg: ArchConfig, mixer: str, channel: str,
+                 cross: bool = False, **kw):
         super().__init__()
+        self.mixer, self.channel = mixer, channel
         self.norm1 = L.norm_init(cfg.norm, cfg.d_model, **kw)
-        self.mix = L.attn_init(cfg.d_model, _attn_dims(cfg), **kw)
-        self.norm2 = L.norm_init(cfg.norm, cfg.d_model, **kw)
-        self.chan = L.mlp_init(cfg.d_model, cfg.d_ff, gated=True, **kw)
+        if mixer in ("attn", "local", "bidir"):
+            self.mix = L.attn_init(cfg.d_model, _attn_dims(cfg), **kw)
+        elif mixer == "mla":
+            self.mix = L.mla_init(cfg.d_model, _mla_dims(cfg), **kw)
+        elif mixer == "rglru":
+            self.mix = ssm_mod.rglru_init(_rglru_dims(cfg), **kw)
+        elif mixer == "ssd":
+            self.mix = ssm_mod.ssd_init(_ssd_dims(cfg), **kw)
+        elif mixer != "none":
+            raise ValueError(f"{cfg.arch_id}: no token mixer {mixer!r}")
+        if cross:
+            self.norm_x = L.norm_init(cfg.norm, cfg.d_model, **kw)
+            self.cross = L.attn_init(cfg.d_model, _attn_dims(cfg), **kw)
+        if channel == "mlp":
+            self.norm2 = L.norm_init(cfg.norm, cfg.d_model, **kw)
+            self.chan = L.mlp_init(cfg.d_model, cfg.d_ff, gated=True, **kw)
+        elif channel == "moe":
+            self.norm2 = L.norm_init(cfg.norm, cfg.d_model, **kw)
+            self.chan = moe_mod.moe_init(_moe_dims(cfg), **kw)
+        elif channel != "none":
+            raise ValueError(f"{cfg.arch_id}: no channel mixer {channel!r}")
+
+    def _channel(self, cfg: ArchConfig, x: torch.Tensor):
+        """The channel half of the layer: (x, aux)."""
+        dt = x.dtype
+        if self.channel == "none":
+            return x, None
+        h2 = L.apply_norm(cfg.norm, self.norm2, x)
+        if self.channel == "mlp":
+            return x + L.mlp(self.chan, h2, act=cfg.act).to(dt), None
+        y, aux = moe_mod.moe_apply(self.chan, h2, _moe_dims(cfg))
+        return x + y.to(dt), aux
 
     def forward(self, cfg: ArchConfig, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-        """The full-sequence layer (the reference's ``_layer_apply`` for
-        ``attn`` + ``mlp``): (B, S, d_model) → (B, S, d_model)."""
+                positions: torch.Tensor,
+                memory: Optional[torch.Tensor] = None):
+        """The full-sequence layer (the reference's ``_layer_apply``):
+        (B, S, d_model) → (x, aux), aux the MoE's load-balance loss (a
+        float32 scalar; None for other channels, whose loss is 0)."""
         dt = x.dtype  # the residual stream keeps its dtype
         h = L.apply_norm(cfg.norm, self.norm1, x)
-        y = L.mha(self.mix, h, _attn_dims(cfg), positions=positions,
-                  rope_theta=cfg.rope_theta)
-        x = x + y.to(dt)
-        h2 = L.apply_norm(cfg.norm, self.norm2, x)
-        return x + L.mlp(self.chan, h2, act=cfg.act).to(dt)
+        m = self.mixer
+        if m in ("attn", "local"):
+            x = x + L.mha(self.mix, h, _attn_dims(cfg), positions=positions,
+                          rope_theta=cfg.rope_theta,
+                          window=cfg.window if m == "local" else None).to(dt)
+        elif m == "bidir":
+            x = x + L.mha_bidir(self.mix, h, _attn_dims(cfg),
+                                positions=positions,
+                                rope_theta=cfg.rope_theta).to(dt)
+        elif m == "mla":
+            x = x + L.mla(self.mix, h, _mla_dims(cfg), positions=positions,
+                          rope_theta=cfg.rope_theta).to(dt)
+        elif m == "rglru":
+            x = x + ssm_mod.rglru(self.mix, h, _rglru_dims(cfg)).to(dt)
+        elif m == "ssd":
+            x = x + ssm_mod.ssd(self.mix, h, _ssd_dims(cfg)).to(dt)
+        if hasattr(self, "cross"):
+            if memory is None:
+                raise ValueError(f"{cfg.arch_id}: cross attention needs the "
+                                 "encoder's memory (pass frames=)")
+            hx = L.apply_norm(cfg.norm, self.norm_x, x)
+            x = x + L.cross_attn(self.cross, hx, memory,
+                                 _attn_dims(cfg)).to(dt)
+        return self._channel(cfg, x)
 
     def decode(self, cfg: ArchConfig, x: torch.Tensor, cache: Dict[str, Any],
-               cur_len: int) -> torch.Tensor:
-        dt = x.dtype  # the residual stream keeps its dtype
+               cur_len: int, cross_kv=None) -> torch.Tensor:
+        """One token (the reference's ``_layer_decode``): (B, 1, d_model) →
+        (B, 1, d_model); ``cache`` is this layer's, updated in place."""
+        dt = x.dtype
         h = L.apply_norm(cfg.norm, self.norm1, x)
-        y = L.mha_decode(self.mix, h, _attn_dims(cfg), cache["k"], cache["v"],
-                         cur_len, rope_theta=cfg.rope_theta)
+        m = self.mixer
+        if m == "attn":
+            y = L.mha_decode(self.mix, h, _attn_dims(cfg), cache["k"],
+                             cache["v"], cur_len, rope_theta=cfg.rope_theta)
+        elif m == "local":
+            y = _mha_decode_ring(self.mix, h, cfg, cache, cur_len)
+        elif m == "mla":
+            y = L.mla_decode(self.mix, h, _mla_dims(cfg), cache["latent"],
+                             cache["krope"], cur_len,
+                             rope_theta=cfg.rope_theta)
+        elif m == "ssd":
+            y, cache["h"], cache["conv"] = ssm_mod.ssd_decode(
+                self.mix, h, _ssd_dims(cfg), cache["h"], cache["conv"])
+        elif m == "rglru":
+            y, cache["h"], cache["conv"] = ssm_mod.rglru_decode(
+                self.mix, h, _rglru_dims(cfg), cache["h"], cache["conv"])
+        else:
+            raise ValueError(f"{cfg.arch_id}: no decode for mixer {m!r}")
         x = x + y.to(dt)
-        h2 = L.apply_norm(cfg.norm, self.norm2, x)
-        return x + L.mlp(self.chan, h2, act=cfg.act).to(dt)
+        if hasattr(self, "cross") and cross_kv is not None:
+            hx = L.apply_norm(cfg.norm, self.norm_x, x)
+            x = x + _cross_decode(self.cross, hx, cfg, *cross_kv).to(dt)
+        return self._channel(cfg, x)[0]
+
+
+def _mha_decode_ring(p, h: torch.Tensor, cfg: ArchConfig,
+                     cache: Dict[str, torch.Tensor],
+                     cur_len: int) -> torch.Tensor:
+    """Sliding-window decode against a ring cache of W slots: this token's
+    k and v go to slot ``cur_len mod W`` IN PLACE, with its position in
+    the ``pos`` plane; a slot is valid while its position lies in
+    ``(cur_len - W, cur_len]``.  Never raises past W: the ring wraps."""
+    dims = _attn_dims(cfg)
+    b = h.shape[0]
+    w = cache["k"].shape[1]
+    q = (h @ p["q"]["w"]).reshape(b, 1, dims.n_heads, dims.d_head)
+    k = (h @ p["k"]["w"]).reshape(b, 1, dims.n_kv, dims.d_head)
+    v = (h @ p["v"]["w"]).reshape(b, 1, dims.n_kv, dims.d_head)
+    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=h.device)
+    q = L.rope(q, pos, cfg.rope_theta)
+    k = L.rope(k, pos, cfg.rope_theta)
+    slot = cur_len % w
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cpos = cache["pos"]
+    cpos[slot] = cur_len
+    g = dims.n_heads // dims.n_kv
+    qr = q.reshape(b, dims.n_kv, g, dims.d_head)
+    sc = torch.einsum("bhgd,bshd->bhgs", qr.float(), cache["k"].float())
+    sc = sc / math.sqrt(dims.d_head)
+    valid = (cpos >= 0) & (cpos > cur_len - w) & (cpos <= cur_len)
+    sc = sc.masked_fill(~valid, float("-inf"))
+    pr = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", pr, cache["v"].float())
+    out = out.reshape(b, 1, dims.n_heads * dims.d_head).to(h.dtype)
+    return out @ p["o"]["w"]
+
+
+def _cross_decode(p, x: torch.Tensor, cfg: ArchConfig, ck: torch.Tensor,
+                  cv: torch.Tensor) -> torch.Tensor:
+    """One token's cross attention over the cached memory keys and values
+    (B, S_enc, Hkv, D), a full float32 softmax."""
+    dims = _attn_dims(cfg)
+    b = x.shape[0]
+    q = (x @ p["q"]["w"]).reshape(b, 1, dims.n_heads, dims.d_head)
+    qr = q.reshape(b, dims.n_kv, dims.n_heads // dims.n_kv, dims.d_head)
+    sc = torch.einsum("bhgd,bshd->bhgs", qr.float(), ck.float())
+    pr = torch.softmax(sc / math.sqrt(dims.d_head), dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", pr, cv.float())
+    return out.reshape(b, 1, -1).to(x.dtype) @ p["o"]["w"]
 
 
 class LM(nn.Module):
-    """Embedding (hot/cold split), ``cfg.n_layers`` blocks, final norm."""
+    """Embedding (hot/cold split), ``cfg.n_layers`` blocks in the config's
+    pattern, final norm; the encoder stack and ``enc_norm`` of an enc-dec
+    config; ``prefix_proj`` of a VLM config."""
 
     def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
+        pattern = cfg.layer_pattern()
+        cross = cfg.n_enc_layers > 0
         self.embed = embed_mod.embed_init(_embed_dims(cfg), **kw)
-        self.layers = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            Block(cfg, *pattern[i % len(pattern)], cross=cross, **kw)
+            for i in range(cfg.n_layers))
+        if cross:
+            self.encoder = nn.ModuleList(Block(cfg, "bidir", "mlp", **kw)
+                                         for _ in range(cfg.n_enc_layers))
+            self.enc_norm = L.norm_init(cfg.norm, cfg.d_model, **kw)
+        if cfg.prefix_len:
+            self.prefix_proj = L.dense_init(cfg.d_model, cfg.d_model, **kw)
         self.final_norm = L.norm_init(cfg.norm, cfg.d_model, **kw)
 
 
@@ -133,43 +264,66 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     return LM(cfg, generator=gen, device=dev, dtype=dtype)
 
 
-def _block_with(block: Block, names, cfg, x, positions, *tensors):
+def _block_with(block: Block, names, cfg, x, positions, memory, *tensors):
     return torch.func.functional_call(block, dict(zip(names, tensors)),
-                                      (cfg, x, positions))
+                                      (cfg, x, positions, memory))
 
 
 def _layer(block: Block, cfg: ArchConfig, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, memory: Optional[torch.Tensor]
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     if not (cfg.remat and torch.is_grad_enabled()):
-        return block(cfg, x, positions)
+        return block(cfg, x, positions, memory)
     # the tensors the block holds now (a cast copy inside train.step's
     # functional_call) go in as inputs and are read again by the recompute
     names, tensors = zip(*block.named_parameters())
-    return checkpoint(_block_with, block, names, cfg, x, positions, *tensors,
-                      use_reentrant=False)
+    return checkpoint(_block_with, block, names, cfg, x, positions, memory,
+                      *tensors, use_reentrant=False)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def _encode(model: LM, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder stack over the stub frame embeddings (B, S_src, D), then
+    ``enc_norm``: the cross attention's memory."""
+    cfg = model.cfg
+    if not hasattr(model, "encoder"):
+        raise ValueError(f"{cfg.arch_id} has no encoder; frames= is for "
+                         "enc-dec configs")
+    x = frames
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for block in model.encoder:
+        x, _ = block(cfg, x, positions)
+    return L.apply_norm(cfg.norm, model.enc_norm, x)
 
 
 def forward(model: LM, tokens: torch.Tensor, *,
             prefix: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, last_only: bool = False,
             return_hidden: bool = False):
-    """Logits (B, S, padded V) and the auxiliary loss (a float32 scalar,
-    0 for dense layers) of ``tokens`` (B, S) integer, one K2 launch on the
-    card for the embedding.  ``last_only``: unembed the final position
-    only (prefill serving); ``return_hidden``: the final-normed hidden
-    states instead of logits (the chunked loss)."""
+    """Logits (B, S_total, padded V) and the auxiliary loss (a float32
+    scalar: the MoE layers' load-balance losses summed, 0 without MoE) of
+    ``tokens`` (B, S) integer, one K2 launch on the card for the
+    embedding.  ``prefix``: VLM patch embeddings (B, P, D), projected and
+    prepended (S_total = P + S); ``frames``: the enc-dec stub's encoder
+    input (B, S_src, D).  ``last_only``: unembed the final position only
+    (prefill serving); ``return_hidden``: the final-normed hidden states
+    instead of logits (the chunked loss)."""
     cfg = model.cfg
-    if prefix is not None:
-        raise _not_yet("prefix", cfg)
-    if frames is not None:
-        raise _not_yet("cross", cfg)
     x = embed_mod.embed_lookup(model.embed, tokens)
+    if prefix is not None:
+        pe = prefix @ model.prefix_proj["w"]
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+    memory = _encode(model, frames) if frames is not None else None
     b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
-    for block in model.layers:
-        x = _layer(block, cfg, x, positions)
+    positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block in model.layers:
+        x, a = _layer(block, cfg, x, positions, memory)
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(cfg.norm, model.final_norm, x)
     if return_hidden:
         return x, aux
@@ -200,16 +354,20 @@ def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor, *,
             prefix: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, aux_weight: float = 0.01,
             loss_chunk: int = 0) -> torch.Tensor:
-    """Next-token cross-entropy (a float32 scalar) of ``labels`` (B, S).
+    """Next-token cross-entropy (a float32 scalar) of ``labels`` (B, S) over
+    the token positions (a VLM prefix's positions are left out), plus
+    ``aux_weight`` times the auxiliary loss per layer.
 
     ``loss_chunk`` > 0 projects onto the vocabulary and takes the
     logsumexp per chunk of that many positions under a checkpoint, so the
     (B, S, V) logits are never held; positions past the last whole chunk
     are left out, as in the reference."""
     cfg = model.cfg
+    skip = 0 if prefix is None else prefix.shape[1]
     if loss_chunk:
         hidden, aux = forward(model, tokens, prefix=prefix, frames=frames,
                               return_hidden=True)
+        hidden = hidden[:, skip:]
         b, s, _ = hidden.shape
         c = min(loss_chunk, s)
         nc = s // c
@@ -222,22 +380,66 @@ def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor, *,
         ce = total / (b * nc * c)
     else:
         logits, aux = forward(model, tokens, prefix=prefix, frames=frames)
-        ce = _ce_sum(logits, labels) / labels.numel()
+        ce = _ce_sum(logits[:, skip:], labels) / labels.numel()
     return ce + aux_weight * aux / max(1, cfg.n_layers)
+
+
+def _layer_cache(cfg: ArchConfig, mixer: str, b: int, max_len: int, dev,
+                 dtype) -> Dict[str, torch.Tensor]:
+    """One layer's decode cache: k/v (``attn``), a ring of
+    ``min(window, max_len)`` slots with its ``pos`` plane (``local``), the
+    MLA latent and rotated key (``mla``), or the float32 recurrent state
+    and conv tail (``ssd``, ``rglru``)."""
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if mixer == "attn":
+        shape = (b, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": z(*shape), "v": z(*shape)}
+    if mixer == "local":
+        w = min(cfg.window, max_len)
+        shape = (b, w, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": z(*shape), "v": z(*shape),
+                "pos": torch.full((w,), -1, dtype=torch.int32, device=dev)}
+    if mixer == "mla":
+        return {"latent": z(b, max_len, cfg.kv_lora),
+                "krope": z(b, max_len, cfg.mla_d_rope)}
+    if mixer == "ssd":
+        d = _ssd_dims(cfg)
+        return {"h": z(b, d.n_heads, d.d_state, d.d_head, dt=torch.float32),
+                "conv": z(b, d.d_conv - 1, d.d_inner, dt=torch.float32)}
+    if mixer == "rglru":
+        d = _rglru_dims(cfg)
+        return {"h": z(b, d.width, dt=torch.float32),
+                "conv": z(b, d.d_conv - 1, d.width, dt=torch.float32)}
+    raise ValueError(f"{cfg.arch_id}: no decode cache for mixer {mixer!r}")
 
 
 def init_cache(cfg: ArchConfig, b: int, max_len: int, *, device=None,
                dtype=torch.bfloat16) -> Dict[str, Any]:
-    """``{"layers": [{"k", "v"} (B, max_len, Hkv, D) zeros per layer],
-    "len": 0}``; ``len`` is a host int (no device read per step)."""
-    _check_ported(cfg)
+    """``{"layers": [one cache per layer], "len": 0}``, plus
+    ``cross_k``/``cross_v`` zeros over ``CROSS_MEMORY`` positions for an
+    enc-dec config (the reference's decode stub: nothing fills them, so
+    decode's cross attention adds exactly 0).  ``len`` is a host int (no
+    device read per step)."""
     dev = resolve_device(device)
-    shape = (b, max_len, cfg.n_kv_heads, cfg.head_dim)
+    pattern = cfg.layer_pattern()
     layers: List[Dict[str, torch.Tensor]] = [
-        {"k": torch.zeros(shape, dtype=dtype, device=dev),
-         "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        for _ in range(cfg.n_layers)]
-    return {"layers": layers, "len": 0}
+        _layer_cache(cfg, pattern[i % len(pattern)][0], b, max_len, dev,
+                     dtype) for i in range(cfg.n_layers)]
+    cache: Dict[str, Any] = {"layers": layers, "len": 0}
+    if cfg.n_enc_layers:
+        shape = (b, CROSS_MEMORY, cfg.n_kv_heads, cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    return cache
+
+
+def has_linear_cache(cfg: ArchConfig) -> bool:
+    """Whether a layer's cache holds one slot per position (``attn``,
+    ``mla``), so that ``max_len`` bounds the sequence; a ring (``local``)
+    or a recurrent state does not."""
+    return any(m in ("attn", "mla") for m, _ in cfg.layer_pattern())
 
 
 @torch.no_grad()
@@ -248,8 +450,10 @@ def decode_step(model: LM, cache: Dict[str, Any], token: torch.Tensor):
     cfg = model.cfg
     cur_len = cache["len"]
     x = embed_mod.embed_lookup(model.embed, token)
+    cross_kv = ((cache["cross_k"], cache["cross_v"]) if cfg.n_enc_layers
+                else None)
     for block, layer_cache in zip(model.layers, cache["layers"]):
-        x = block.decode(cfg, x, layer_cache, cur_len)
+        x = block.decode(cfg, x, layer_cache, cur_len, cross_kv)
     cache["len"] = cur_len + 1
     x = L.apply_norm(cfg.norm, model.final_norm, x)
     return embed_mod.unembed(model.embed, x), cache

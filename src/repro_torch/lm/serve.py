@@ -25,13 +25,16 @@ def generate(model: model_mod.LM, prompt: torch.Tensor, max_new: int = 16,
     logits (prefill steps first).
 
     ``max_len`` (default S_prompt + max_new + 1, as in the reference) must
-    cover every position written; the reference's cache write clamps an
-    out-of-range position, the port raises instead.
+    cover every position written into a linear cache (``attn``, ``mla``);
+    the reference's cache write clamps an out-of-range position, the port
+    raises instead.  A model whose caches are rings (``local``: W =
+    ``min(window, max_len)`` slots) or recurrent states takes any
+    ``max_len``, as in the reference.
     """
     cfg = model.cfg
     b, sp = prompt.shape
     max_len = max_len or (sp + max_new + 1)
-    if max_len < sp + max_new:
+    if max_len < sp + max_new and model_mod.has_linear_cache(cfg):
         raise ValueError(f"max_len {max_len} < prompt {sp} + max_new {max_new}")
     cache = model_mod.init_cache(cfg, b, max_len, device=prompt.device,
                                  dtype=cache_dtype)

@@ -4,7 +4,9 @@ across blocks), K4 (narrow tables, and hub rows split across blocks), K1
 (every lane, and only the real ones), hist_bin and the stable rank
 (``dbg_bin``) and K2 against their plain versions, the apps on
 ``ell`` and ``packed`` against ``flat``, the LM's greedy decode, forward,
-train step and K2's backward on the card against the CPU, a checkpoint
+train step and K2's backward on the card against the CPU, every other
+block kind (MLA, MoE routing and stable-bin dispatch bitwise, RG-LRU, the
+ring, SSD, the enc-dec and VLM stubs) on the card against the CPU, a checkpoint
 saved on the card restored on the CPU, the wrappers raising rather than falling back, the
 edge-map counters' ``on_pass`` making no device synchronization, and the
 streaming plane: K5 over the stream's tiles (alive planes, a ``coo_tiles``
@@ -661,6 +663,84 @@ def test_lm_generate_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(got.cpu(), want)
     for a, b in zip(got_lg, want_lg):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_moe_routing_and_dispatch_on_the_card_equal_the_cpu(cuda):
+    """Router probabilities with planted ties (pairs of experts scoring
+    exactly equal): the card's expert choices (a stable sort: the lower
+    expert first) and ``stable_bin_dispatch``'s ranks and keeps at capacity
+    factors 1.0 and 8.0 are bitwise the CPU's; ``moe_apply`` within rtol
+    1e-4, atol 1e-5."""
+    from repro_torch.lm import moe
+
+    gen = torch.Generator().manual_seed(0)
+    for cf in (1.0, 8.0):
+        dims = moe.MoeDims(64, 96, 64, 6, 2, capacity_factor=cf)
+        p = moe.moe_init(dims, generator=gen, device="cpu")
+        with torch.no_grad():
+            p["router"]["w"][:, 1::2] = p["router"]["w"][:, 0::2]
+        x = torch.randn((4, 64, 64), generator=gen)
+        probs, top_e, _ = moe.route(p, x.reshape(-1, 64), dims)
+        assert torch.equal(probs[:, 0::2], probs[:, 1::2])
+        cap = moe.capacity(256, dims)
+        rank, keep = moe.stable_bin_dispatch(top_e, 64, cap)
+        assert bool((~keep).any()) == (cf == 1.0)
+        want, want_aux = moe.moe_apply(p, x, dims)
+        p.to(cuda)  # in place
+        _, top_e_d, _ = moe.route(p, x.reshape(-1, 64).to(cuda), dims)
+        assert torch.equal(top_e_d.cpu(), top_e)
+        rank_d, keep_d = moe.stable_bin_dispatch(top_e_d, 64, cap)
+        assert torch.equal(rank_d.cpu(), rank)
+        assert torch.equal(keep_d.cpu(), keep)
+        got, aux = moe.moe_apply(p, x.to(cuda), dims)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("deepseek_v2_lite_16b", {}), ("recurrentgemma_9b", {"window": 8}),
+    ("mamba2_780m", {}), ("paligemma_3b", {}),
+    ("seamless_m4t_large_v2", {})])
+def test_lm_block_kinds_generate_on_the_card_like_the_cpu(cuda, arch, kw):
+    """One reduced family per new block kind (MLA + MoE, RG-LRU + a ring
+    that wraps, SSD, the VLM prefix, the enc-dec cross attention): greedy
+    tokens equal, every step's logits within rtol 1e-4, atol 1e-5, one K2
+    launch per decode step; the forward with the family's stub inputs in
+    the same band."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.gather_embed import hot_gather
+    from repro_torch.lm import model
+    from repro_torch.lm.serve import generate
+
+    cfg = reduced(get_config(arch), **kw)
+    m = model.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                           generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
+                         generator=gen)
+    stub = {}
+    if cfg.prefix_len:
+        stub["prefix"] = torch.randn((2, cfg.prefix_len, cfg.d_model),
+                                     generator=gen)
+    if cfg.n_enc_layers:
+        stub["frames"] = torch.randn((2, 24, cfg.d_model), generator=gen)
+    want, want_lg = generate(m, prompt, max_new=8, return_logits=True)
+    with torch.no_grad():
+        want_f, want_aux = model.forward(m, toks, **stub)
+    m = m.to(cuda)
+    before = hot_gather.launches
+    got, got_lg = generate(m, prompt.to(cuda), max_new=8, return_logits=True)
+    torch.cuda.synchronize()
+    assert hot_gather.launches - before == 16
+    assert torch.equal(got.cpu(), want)
+    for a, b in zip(got_lg, want_lg):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    with torch.no_grad():
+        got_f, aux = model.forward(m, toks.to(cuda),
+                                   **{k: v.to(cuda) for k, v in stub.items()})
+    torch.testing.assert_close(got_f.cpu(), want_f, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-5)
 
 
 def test_k2_backward_on_the_card_is_bitwise_and_matches_the_cpu(cuda):

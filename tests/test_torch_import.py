@@ -201,3 +201,22 @@ def test_load_all_builds_every_kernel_source_in_one_call(monkeypatch):
         "gather_embed.cu"]
     assert all(src.exists() for src, _ in seen)
     assert bound == list(kernels.KERNEL_MODULES)
+
+
+def test_the_source_scan_covers_the_lm_block_kinds():
+    """The MoE and the recurrent mixers are scanned and import cleanly."""
+    for name in ("moe", "ssm", "model", "layers"):
+        assert PORT / "lm" / f"{name}.py" in SOURCES
+    assert {"repro_torch.lm.moe", "repro_torch.lm.ssm"} <= set(_modules())
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "grok_1_314b",
+                                  "recurrentgemma_9b", "mamba2_780m",
+                                  "paligemma_3b", "seamless_m4t_large_v2"])
+def test_serve_entry_point_runs_every_block_kind_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    assert serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "4", "--max-new", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "device=cpu" in out and "generated (2, 7)" in out
