@@ -234,10 +234,14 @@ Phases (any failure raises, and the script exits non-zero):
      finite); ``forward(last_only=True)`` over the served tokens against
      the last decode step in the reference's decode band (DeepSeek at
      capacity factor ``BLOCK_CF_CHECK``, where neither drops a slot;
-     Mamba2 in ``FORWARD_REL_L2``), and the slots the published capacity
-     factor drops in that forward; ms per decode step, one step under
-     ``torch.profiler`` (busy time, launches), peak memory; an
-     ``lm_blocks`` JSON line.
+     Mamba2's forward, last decode step and their gap each within
+     ``FORWARD_REL_L2`` of a float64 forward), and the slots the published
+     capacity factor drops in that forward; ms per decode step, one step
+     under ``torch.profiler`` (busy time, launches), peak memory; every
+     call through the model's entry points (the warm-up, the served
+     steps, the forwards, the profiled steps) counted from zero for every
+     kernel, K2 as expected and no graph kernel; an ``lm_blocks`` JSON
+     line.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
 device and ``device_ms`` on the device alone, its library call's
@@ -253,8 +257,8 @@ beside 8 one-column pulls, cuSPARSE SpMM and the bound, with one
 ``bound_ms`` are
 its degree walk's, ``padded_ms`` and ``padded_bound_ms`` its every-lane
 path's; K2's ``launches_by_path`` has ``lm_forward``, ``lm_train`` and
-``lm_blocks`` (the full-width forward, the timed training steps, and phase
-19's served steps and checked forwards) and its ``lm_train`` the
+``lm_blocks`` (the full-width forward, the timed training steps, and every
+call of phase 19; every kernel's ``lm_blocks`` is counted) and its ``lm_train`` the
 plain backward's ms per step; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG,
 ``device_ops_per_call`` counts its device operations, and ``two_ops_ms`` and
 ``two_ops_device_ms`` time its two-op comparison build; ``stable_rank``
@@ -264,6 +268,7 @@ stable mapping) and, as its last line,
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import shutil
@@ -301,12 +306,15 @@ LM_PARITY = (("yi_9b", dict(n_kv_heads=2)), ("olmo_1b", {}),
 BLOCK_ARCHS = ("deepseek_v2_lite_16b", "recurrentgemma_9b", "mamba2_780m")
 BLOCK_CF_CHECK = 8.0  # the MoE forward held to decode drops no slot here
 # forward(last_only) against the last decode step: the reference's decode
-# band (rtol 2e-2, atol 2e-4) elementwise, but Mamba2's 48 SSD layers
-# amplify float32 rounding past it: the reference's own forward and decode
-# miss it 3.3x at 48 layers of reduced width, and at full width on the H100
-# the port's forward and decode sit 6.0e-4 and 8.5e-4 (relative L2) from a
-# float64 forward, 1.2e-3 from each other (33x the elementwise band).  There
-# the logits' relative L2 gap is held instead (ROADMAP C; PERF.md §6).
+# band (rtol 2e-2, atol 2e-4) elementwise.  Mamba2's 48 SSD layers amplify
+# float32 rounding past it: at 48 layers of reduced width the reference's
+# own forward and decode miss it 1.65x at the last position, 6.6x over all
+# 64 (tests/test_torch_lm_recurrent.py::test_mamba2_at_depth_drifts_as_the_
+# reference_does).  There the forward, the last decode step and the gap
+# between them are each held to FORWARD_REL_L2 (relative L2) of a float64
+# forward of the same weights, which this phase runs each time: float32
+# rounding sits ~1e-3 from it at full width, a wrong layer O(1)
+# (ROADMAP C; PERF.md §6).
 FORWARD_REL_L2 = {"mamba2_780m": 5e-3}
 # phase 17: the full-sequence forward over phase 15's served tokens
 FORWARD_REPS = 5
@@ -3193,25 +3201,22 @@ def k2_grid(device):
 
 
 # ---------------------------------------------------------------- phase 14
-class _Routes:
-    """The experts ``lm.moe.route`` picks (its ``top_e``, copied to the
-    host) at every call while the block is open."""
+@contextlib.contextmanager
+def _spy(module, name, pick):
+    """``module.name`` swapped for a wrapper that records ``pick(out)`` of
+    every call while the block is open; yields the list of records."""
+    real, seen = getattr(module, name), []
 
-    def __enter__(self):
-        from repro_torch.lm import moe
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(pick(out))
+        return out
 
-        self.mod, self.real, self.seen = moe, moe.route, []
-
-        def spy(*args, **kwargs):
-            out = self.real(*args, **kwargs)
-            self.seen.append(out[1].cpu())
-            return out
-
-        moe.route = spy
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.route = self.real
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
 
 
 def _stub_inputs(cfg, b, gen):
@@ -3238,6 +3243,7 @@ def lm_parity(device):
     import torch
 
     from repro_torch.configs import get_config, reduced
+    from repro_torch.lm import moe
     from repro_torch.lm.model import forward, init_params
     from repro_torch.lm.serve import generate
 
@@ -3257,12 +3263,13 @@ def lm_parity(device):
         runs = {}
         for where, dev in (("cpu", torch.device("cpu")), ("card", device)):
             model = model.to(dev)
-            with _Routes() as routes, torch.no_grad():
+            with _spy(moe, "route", lambda out: out[1].cpu()) as routes, \
+                    torch.no_grad():
                 tokens, step_lg = generate(model, prompt.to(dev), max_new=8,
                                            return_logits=True)
                 lg, aux = forward(model, toks.to(dev),
                                   **{k: v.to(dev) for k, v in stub.items()})
-            runs[where] = (tokens, step_lg, lg, aux, routes.seen)
+            runs[where] = (tokens, step_lg, lg, aux, routes)
         (want, want_lg, want_f, want_aux, want_r), (got, got_lg, got_f,
                                                      got_aux, got_r) = (
             runs["cpu"], runs["card"])
@@ -3895,7 +3902,6 @@ def train_driver(steps):
     checkpoint-and-exit path) and resumed to ``steps`` in another
     directory; final parameters and optimizer state bitwise equal; the
     straight run's return code 0 (loss decreased)."""
-    import contextlib
     import io
     import re
     import signal
@@ -3973,30 +3979,53 @@ def train_driver(steps):
 
 
 # ---------------------------------------------------------------- phase 19
-class _Drops:
-    """The slots ``lm.moe.stable_bin_dispatch`` keeps and drops, per call,
-    while the block is open (summed on the device, read once at the end)."""
+def _counted(counts, what, k2, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every launch count set to 0 just before
+    and read just after, added into ``counts``.  Raises unless K2 launched
+    ``k2`` times and no graph kernel launched."""
+    _reset_launches()
+    out = fn(*args, **kwargs)
+    made = _read_launches()
+    for n, c in made.items():
+        counts[n] = counts.get(n, 0) + c
+    others = {k: n for k, n in made.items() if k != "hot_gather" and n}
+    if made["hot_gather"] != k2 or others:
+        raise AssertionError(f"{what}: K2 launched {made['hot_gather']} "
+                             f"times, not {k2}; graph kernels {others}")
+    return out
 
-    def __enter__(self):
-        from repro_torch.lm import moe
 
-        self.mod, self.real, self.keeps = moe, moe.stable_bin_dispatch, []
+def _dropped(keeps):
+    """(slots, dropped per call) of ``stable_bin_dispatch``'s keep masks."""
+    return (sum(k.numel() for k in keeps), [int((~k).sum()) for k in keeps])
 
-        def spy(*args, **kwargs):
-            rank, keep = self.real(*args, **kwargs)
-            self.keeps.append(keep)
-            return rank, keep
 
-        moe.stable_bin_dispatch = spy
-        return self
+def _float64_last(model, tokens):
+    """``forward(last_only=True)`` logits of ``model`` over ``tokens`` in
+    float64 on the card: the weights widened (exact), the embedding rows
+    read from float32 copies of the tables (K2 takes float32 and bfloat16)
+    and widened, every later operation in float64."""
+    import copy
 
-    def __exit__(self, *exc):
-        self.mod.stable_bin_dispatch = self.real
+    import torch
 
-    def counts(self):
-        """(slots, dropped per call)."""
-        return (sum(k.numel() for k in self.keeps),
-                [int((~k).sum()) for k in self.keeps])
+    import repro_torch.lm.model as model_mod
+    from repro_torch.lm import embed as embed_mod
+
+    m64 = copy.deepcopy(model).double()
+    real = embed_mod.embed_lookup
+
+    def widened(params, ids):
+        return real({k: v.float() for k, v in params.items()}, ids).double()
+
+    embed_mod.embed_lookup = widened
+    try:
+        with torch.no_grad():
+            out, _ = model_mod.forward(m64, tokens, last_only=True)
+    finally:
+        embed_mod.embed_lookup = real
+    del m64
+    return out
 
 
 def _full_width(arch, device):
@@ -4007,14 +4036,18 @@ def _full_width(arch, device):
     last decode step in the reference's decode band (an MoE at capacity
     factor BLOCK_CF_CHECK, where neither drops a slot; then the slots the
     published factor drops in the same forward), one decode step under
-    ``torch.profiler``, the peak memory."""
+    ``torch.profiler``, the peak memory.  Every call through the model's
+    entry points runs with the launch counts set to 0 just before and read
+    just after, and adds into the model's ``launches``.  A family in
+    FORWARD_REL_L2 holds its forward, its last decode step and the gap
+    between them to a float64 forward of the same weights instead."""
     import dataclasses
 
     import torch
 
     import repro_torch.lm.model as model_mod
     from repro_torch.configs import get_config
-    from repro_torch.kernels.gather_embed import hot_gather
+    from repro_torch.lm import moe
     from repro_torch.lm.serve import generate
 
     cfg = get_config(arch)
@@ -4034,57 +4067,82 @@ def _full_width(arch, device):
     init_s = time.perf_counter() - t0
     tokens, vm = _zipf_tokens(cfg.vocab_size, LM_BATCH, LM_PROMPT)
     prompt = torch.from_numpy(tokens).to(device)
+    counts = {}
     t0 = time.perf_counter()
-    generate(model, prompt[:, :4], max_new=4)  # cuBLAS set-up, 8 steps
+    # cuBLAS set-up: 8 steps
+    _counted(counts, f"{cfg.arch_id} warm-up", 8, generate, model,
+             prompt[:, :4], max_new=4)
     _sync()
     warm_s = time.perf_counter() - t0
-    sv = _served(model, prompt)
+    sv = _served(model, prompt)  # counts read from zero, checked there
+    for n, c in sv.pop("launches").items():
+        counts[n] = counts.get(n, 0) + c
     served = sv.pop("out")
     last_step = sv.pop("logits")[-1]
 
     check = (dataclasses.replace(cfg, capacity_factor=BLOCK_CF_CHECK)
              if cfg.n_experts else cfg)
     model.cfg = check
-    n0 = hot_gather.launches
-    with _Drops() as kept, torch.no_grad():
-        last, _ = model_mod.forward(model, served, last_only=True)
-    fwd_launches = hot_gather.launches - n0
+    with _spy(moe, "stable_bin_dispatch", lambda out: out[1]) as keeps, \
+            torch.no_grad():
+        last, _ = _counted(counts, f"{cfg.arch_id} forward", 1,
+                           model_mod.forward, model, served, last_only=True)
     used = _band_used(last, last_step, 2e-2, 2e-4)
     rel = float((last - last_step).norm() / last_step.norm())
-    dropped = sum(kept.counts()[1])
-    if fwd_launches != 1 or dropped:
-        raise AssertionError(f"{cfg.arch_id}: forward launched K2 "
-                             f"{fwd_launches} times, dropped {dropped} slots")
-    if not (rel <= FORWARD_REL_L2[arch] if arch in FORWARD_REL_L2
-            else used <= 1.0):
+    dropped = sum(_dropped(keeps)[1])
+    if dropped:
+        raise AssertionError(f"{cfg.arch_id}: the forward at capacity factor "
+                             f"{BLOCK_CF_CHECK} dropped {dropped} slots")
+    if arch not in FORWARD_REL_L2 and not used <= 1.0:
         raise AssertionError(f"{cfg.arch_id}: forward(last_only) off the last"
                              f" decode step by {used:.3g}x the decode band, "
                              f"{rel:.3g} relative L2")
     drops = None
     if cfg.n_experts:
         model.cfg = cfg
-        with _Drops() as published, torch.no_grad():
-            model_mod.forward(model, served, last_only=True)
-        slots, per_call = published.counts()
+        with _spy(moe, "stable_bin_dispatch", lambda out: out[1]) as keeps, \
+                torch.no_grad():
+            _counted(counts, f"{cfg.arch_id} forward at capacity factor "
+                     f"{cfg.capacity_factor}", 1, model_mod.forward, model,
+                     served, last_only=True)
+        slots, per_call = _dropped(keeps)
         drops = dict(capacity_factor=cfg.capacity_factor, slots=slots,
                      dropped=sum(per_call), dropped_per_layer=per_call)
     model.cfg = cfg
-    prof = profile_decode_step(model, served)
+    # a warm step, then the profiled one
+    prof = _counted(counts, f"{cfg.arch_id} profiled step", 2,
+                    profile_decode_step, model, served)
     peak = torch.cuda.max_memory_allocated()
+    exact = None
+    if arch in FORWARD_REL_L2:
+        want = _float64_last(model, served)
+
+        def off(x):
+            return float((x.double() - want).norm() / want.norm())
+
+        exact = dict(forward=off(last), decode=off(last_step))
+        band = FORWARD_REL_L2[arch]
+        if not max(rel, exact["forward"], exact["decode"]) <= band:
+            raise AssertionError(
+                f"{cfg.arch_id}: forward(last_only) and the last decode step "
+                f"{rel:.3g} apart, {exact['forward']:.3g} and "
+                f"{exact['decode']:.3g} from a float64 forward (relative L2; "
+                f"band {band:g})")
+        del want
     step_bytes = _matmul_params(model) * 4
     out = dict(arch=cfg.arch_id, n_params=n_params, dtype="float32",
                predicted_bytes=n_params * 4, init_s=init_s, warm_s=warm_s,
                layers=cfg.n_layers, d_model=cfg.d_model,
                pattern=[list(p) for p in cfg.layer_pattern()],
-               k2_launches=sv["launches"]["hot_gather"] + fwd_launches,
+               launches=counts, k2_launches=counts["hot_gather"],
                forward_band_used=used, forward_rel_l2=rel,
-               forward_rel_l2_band=FORWARD_REL_L2.get(arch), drops=drops,
+               forward_rel_l2_band=FORWARD_REL_L2.get(arch),
+               float64_rel_l2=exact, drops=drops,
                hot_share=float((prompt < cfg.hot_vocab_rows).float().mean()),
                dbg_hot_rows=vm.hot_rows, peak_gib=peak / 2**30,
                step_bytes=step_bytes,
                bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
-               profile=prof, **{k: v for k, v in sv.items()
-                                if k != "launches"})
+               profile=prof, **sv)
     log(f"  {cfg.arch_id} ({cfg.n_layers} layers of {cfg.layer_pattern()}, "
         f"d_model {cfg.d_model}): on the card in {init_s:.1f} s; "
         f"generate {sv['gen_s']:.3f} s (warm-up {warm_s:.1f} s), decode "
@@ -4093,11 +4151,14 @@ def _full_width(arch, device):
         f"({step_bytes} B of weights per step); one profiled step "
         f"{prof['step_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
         f"{prof['launches']} device launches; K2 launches "
-        f"{sv['launches']['hot_gather']} over {sv['steps']} steps; "
+        f"{counts['hot_gather']} ({sv['steps']} served steps, 8 warm-up, "
+        f"{2 if drops else 1} forward, 2 profiled); "
         f"forward(last_only) at {used:.3g} of the decode band, {rel:.3g} "
         f"relative L2"
-        + ("" if arch not in FORWARD_REL_L2 else
-           f" (held to {FORWARD_REL_L2[arch]:g} relative L2)")
+        + ("" if exact is None else
+           f" (held to {FORWARD_REL_L2[arch]:g} relative L2, as are its "
+           f"{exact['forward']:.3g} and the decode's {exact['decode']:.3g} "
+           "from a float64 forward)")
         + ("" if drops is None else
            f" (capacity factor {BLOCK_CF_CHECK}, no slot dropped); at the "
            f"published {cfg.capacity_factor} the same forward drops "
@@ -4544,9 +4605,13 @@ def main() -> int:
     # MoE, RG-LRU + local attention, SSD, each served and freed in turn
     t0 = time.perf_counter()
     blocks = lm_blocks(dev)
-    lm_blocks_k2 = sum(b["k2_launches"] for b in blocks.values())
-    log(f"LM block kinds at full width: {list(blocks)}, K2 launches "
-        f"{lm_blocks_k2} ({time.perf_counter() - t0:.1f} s)")
+    blocks_launches = {k: sum(b["launches"][k] for b in blocks.values())
+                       for k in _wrappers()}
+    if any(n for k, n in blocks_launches.items() if k != "hot_gather"):
+        raise AssertionError(f"graph kernels launched on the LM path: "
+                             f"{blocks_launches}")
+    log(f"LM block kinds at full width: {list(blocks)}, launches "
+        f"{blocks_launches} ({time.perf_counter() - t0:.1f} s)")
     log(json.dumps({"lm_blocks": blocks, "card": smi}))
 
     timed = {
@@ -4574,7 +4639,7 @@ def main() -> int:
                    "lm_serve": lm["launches"][kname],
                    "lm_forward": fw["launches"][kname],
                    "lm_train": tr["launches"][kname],
-                   "lm_blocks": lm_blocks_k2 if kname == "hot_gather" else 0}
+                   "lm_blocks": blocks_launches[kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -21,7 +21,10 @@ puts the port 2.8e-5 and the reference 4.1e-5 from the exact values, so
 the gap is float32 rounding on both sides, amplified through the
 inter-chunk exponentials; the test holds atol 1e-4 there.  Mamba2's
 gradients: 3 elements of ``embed.hot`` 1.49e-6 apart (gradients of rows
-read once, cancellation noise), held at atol 3e-6.  RG-LRU's
+read once, cancellation noise), held at atol 3e-6.  Mamba2 at its
+published 48 layers (reduced width): forward and decode drift apart past
+the reference's elementwise band in both packages, so each is held to
+1e-3 relative L2 of a float64 forward (1.6e-4 measured).  RG-LRU's
 log-depth scan (the reference's ``associative_scan`` groups its sums in
 another tree) keeps RecurrentGemma within the dense band (6.6e-6
 measured).
@@ -45,6 +48,11 @@ FAMILIES = {"recurrentgemma": ("recurrentgemma_9b", dict(window=8)),
             "mamba2": ("mamba2_780m", {})}
 #: Mamba2's forward at two or more SSD chunks (measured need 5.9e-5)
 SSD_FORWARD_ATOL = 1e-4
+#: Mamba2 at its published depth (48 SSD layers), reduced width, S = 64:
+#: the forward and the decode logits of either package, each as relative L2
+#: from a float64 forward of the same weights (measured: the port 1.6e-4 and
+#: 1.3e-4, the reference 1.6e-4 and 1.2e-4)
+DEPTH_REL_L2 = 1e-3
 
 
 @pytest.fixture(scope="module", params=sorted(FAMILIES))
@@ -242,6 +250,65 @@ def test_a_linear_cache_still_bounds_max_len():
 
 def test_forward_matches_its_own_decode(pair):
     P.check_forward_against_own_decode(pair.m)
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_mamba2_at_depth_drifts_as_the_reference_does(monkeypatch):
+    """At 48 SSD layers float32 rounding carries forward and decode apart,
+    past the reference's elementwise band between the two, in the reference
+    as in the port: the reference's own pair misses it (6.6x over the 64
+    positions, 1.65x at the last; the port 8.7x and 1.61x).  Both packages'
+    forward and decode stay within DEPTH_REL_L2 of a float64 forward of the
+    port (the weights widened exactly, the embedding rows read in float32
+    and widened), and the port's gap between the two is the reference's
+    (1.58e-4 against 1.52e-4, relative L2)."""
+    import copy
+
+    from repro_torch.lm import embed
+
+    s = 64
+    p = P.make_pair("mamba2_780m", n_layers=48)
+    toks = P.tokens(p.cfg, s, 5)
+    ref_full = np.asarray(ref_model.forward(p.params, p.rcfg,
+                                            jnp.asarray(toks))[0])
+    rcache = ref_model.init_cache(p.rcfg, 2, s + 1, dtype=jnp.float32)
+    step = jax.jit(lambda prm, c, t: ref_model.decode_step(prm, p.rcfg, c, t))
+    ref_dec = []
+    for t in range(s):
+        lg, rcache = step(p.params, rcache, jnp.asarray(toks[:, t:t + 1]))
+        ref_dec.append(np.asarray(lg)[:, 0])
+    ref_dec = np.stack(ref_dec, 1)
+    tt = torch.from_numpy(toks)
+    cache = model.init_cache(p.cfg, 2, s + 1, device="cpu",
+                             dtype=torch.float32)
+    dec = []
+    with torch.no_grad():
+        full = model.forward(p.m, tt)[0].numpy()
+        for t in range(s):
+            lg, cache = model.decode_step(p.m, cache, tt[:, t:t + 1])
+            dec.append(lg[:, 0].numpy())
+        dec = np.stack(dec, 1)
+        real = embed.embed_lookup
+        monkeypatch.setattr(embed, "embed_lookup", lambda prm, ids: real(
+            {k: v.float() for k, v in prm.items()}, ids).double())
+        exact = model.forward(copy.deepcopy(p.m).double(), tt)[0]
+    assert exact.dtype == torch.float64
+    exact = exact.numpy()
+
+    def used(a, b):
+        return float((np.abs(a - b) / (P.SELF_ATOL + P.SELF_RTOL * np.abs(b))
+                      ).max())
+
+    assert used(ref_full, ref_dec) > 1 and used(ref_full[:, -1],
+                                                ref_dec[:, -1]) > 1
+    for name, x in (("port forward", full), ("port decode", dec),
+                    ("reference forward", ref_full),
+                    ("reference decode", ref_dec)):
+        assert _rel_l2(x, exact) <= DEPTH_REL_L2, name
+    assert _rel_l2(full, dec) <= 2 * _rel_l2(ref_full, ref_dec)
 
 
 def test_loss_and_gradients_match_the_reference(pair):
