@@ -241,7 +241,31 @@ Phases (any failure raises, and the script exits non-zero):
      call through the model's entry points (the warm-up, the served
      steps, the forwards, the profiled steps) counted from zero for every
      kernel, K2 as expected and no graph kernel; an ``lm_blocks`` JSON
-     line.
+     line;
+ 20. the sharded LM (A12.7): phase 18's model, weights and batches, one
+     warm-up and ``SHARDED_STEPS`` steps unsharded (its end state kept on
+     the host), then the same through ``dist.sharding.shard_model`` on a
+     one-rank NCCL ``DeviceMesh`` (1, 1) (``launch.mesh.make_host_mesh``),
+     the batches ``Shard(0)`` on ``data``, under ``activation_sharding``:
+     loss, grad norm and every parameter within ``PARITY_PARAM_ATOL`` of
+     the unsharded step, every parameter a DTensor; K2 once per step
+     (counted from zero around each step), no graph kernel; ms per step
+     beside the unsharded one and phase 18's.  One card holds every axis
+     at size 1: this checks DTensor, NCCL and K2 inside the step, not the
+     exchange between cards; an ``lm_sharded`` JSON line;
+ 21. the new block kinds trained (A12.8): ``TRAIN_BLOCK_ARCHS`` at their
+     published widths, Mamba2-780M at its 48 layers, DeepSeek-V2-Lite-16B
+     and RecurrentGemma-9B cut to the depth whose float32 masters,
+     gradients and two Adam moments (16 bytes a parameter) fit in
+     ``TRAIN_BLOCKS_GIB`` beside an activation allowance (``_train_depth``,
+     counted on ``meta``); one warm-up and ``TRAIN_BLOCK_STEPS`` steps each
+     on phase 18's stream settings, bf16 compute on float32 masters at
+     ``TRAIN_BLOCKS_LR``, the loss over chunks of
+     ``TRAIN_BLOCKS_LOSS_CHUNK`` positions; checks: loss and grad norm
+     finite, grad norm > 0, every parameter changed by step 1 (float64
+     sums), the first batch's loss lower after the steps than at step 1,
+     K2 once per forward pass, no graph kernel; ms per step, tokens/s,
+     peak memory; an ``lm_train_blocks`` JSON line.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
 device and ``device_ms`` on the device alone, its library call's
@@ -258,7 +282,8 @@ beside 8 one-column pulls, cuSPARSE SpMM and the bound, with one
 its degree walk's, ``padded_ms`` and ``padded_bound_ms`` its every-lane
 path's; K2's ``launches_by_path`` has ``lm_forward``, ``lm_train`` and
 ``lm_blocks`` (the full-width forward, the timed training steps, and every
-call of phase 19; every kernel's ``lm_blocks`` is counted) and its ``lm_train`` the
+call of phase 19; every kernel's ``lm_blocks`` is counted), ``lm_sharded``
+and ``lm_train_blocks`` (phases 20 and 21, every kernel counted) and its ``lm_train`` the
 plain backward's ms per step; hist_bin's ``dbg_bin_*`` keys time its caller, the device DBG,
 ``device_ops_per_call`` counts its device operations, and ``two_ops_ms`` and
 ``two_ops_device_ms`` time its two-op comparison build; ``stable_rank``
@@ -331,7 +356,23 @@ PARITY_PARAM_ATOL = 1e-4
 # the driver (launch.train) straight, then preempted halfway by a SIGTERM
 # and resumed
 DRIVER_ARGS = ["--preset", "m100", "--batch", "8", "--seq", "256"]
-DRIVER_STEPS = 100
+DRIVER_STEPS = 60                  # 100 until phases 20 and 21
+# phase 20: phase 18's model through shard_model on a one-rank NCCL mesh
+SHARDED_STEPS = 3                  # after one warm-up step
+# phase 21: the new block kinds trained at published widths: Mamba2 at its
+# depth, DeepSeek-V2-Lite and RecurrentGemma cut to what fits (_train_depth)
+TRAIN_BLOCK_ARCHS = ("mamba2_780m", "deepseek_v2_lite_16b",
+                     "recurrentgemma_9b")
+TRAIN_BLOCK_STEPS = 3              # after one warm-up step
+TRAIN_BLOCKS_GIB = 70              # masters, gradients, moments, activations
+TRAIN_BLOCKS_SLACK_GIB = 6         # activations besides the logits
+# the loss over chunks of positions: over RecurrentGemma's 256,000-row
+# unembedding, 8,192 tokens' logits in bfloat16 and float32 and their
+# gradients come to ~25 GB at once (12 bytes a logit, by arithmetic)
+TRAIN_BLOCKS_LOSS_CHUNK = 512
+# Adam's first steps move every weight by ~lr; at this rate each model's
+# first batch scores lower after the steps (ROADMAP C)
+TRAIN_BLOCKS_LR = 3e-5
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 (tensor cores)
 EVAL_REPS = 5              # timed warm runs per app (median), after one warm-up
 # the paper's orderings (Fig. 3: random_vertex destroys structure), phase 9
@@ -342,15 +383,16 @@ EVAL_TRACED = "sort"       # phase 9 traces this ordering's build and a PageRank
 # with its 256-edge series left out: on the H100's host that series took
 # ~60 s of a phase that ran 448 s (PERF.md, the stream cell), and the script
 # must stay inside its time limit; for the same reason each series runs
-# STREAM_BATCHES batches, not the 10 of PR 18 (phases 11 to 18 came after it)
+# STREAM_BATCHES batches, not the 10 the phase began with (phases 11 to 21
+# came after it; 3 until phases 20 and 21)
 STREAM_SIZES = (1024, 4096)       # edges per batch, one series each
-STREAM_BATCHES = 3                # batches per series, all on one service
+STREAM_BATCHES = 2                # batches per series, all on one service
 STREAM_INSERT_FRAC = 0.75
 # the incremental_dbg policy (regroup every batch) with the fused PageRank
-# push; the threshold puts exactly the final batch over it: 11,264 edges of
-# churn before it, 15,360 with it, against 0.0003 x 41,943,040 = 12,582.9
+# push; the threshold puts exactly the final batch over it: 6,144 edges of
+# churn before it, 10,240 with it, against 0.0002 x 41,943,040 = 8,388.6
 STREAM_CONFIG = dict(pr_fused_push=True, regroup_every=1,
-                     compact_threshold=0.0003)
+                     compact_threshold=0.0002)
 # then one batch of inserts alone: the incremental SSSP relaxation
 STREAM_INSERT_ONLY = 4096
 # phase 11: the serving plane (the reference's serve_qps workload on
@@ -4188,6 +4230,262 @@ def lm_blocks(device):
     return out
 
 
+# ---------------------------------------------------------------- phase 20
+def _steps(ts, model, opt, batches, counts, what, ctx=contextlib.nullcontext):
+    """``ts`` over ``batches``, each step counted from zero (K2 once, no
+    graph kernel) and timed on the host clock, synced: (metrics, ms)."""
+    out, ms = [], []
+    for i, batch in enumerate(batches):
+        _sync()
+        t0 = time.perf_counter()
+        with ctx():
+            m = _counted(counts, f"{what} step {i}", 1, ts, model, opt, batch)
+        _sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append({k: float(v) for k, v in m.items()})
+    return out, ms
+
+
+def lm_sharded(device):
+    """Phase 20: phase 18's model (OLMo-1B, remat on), weights and batches
+    trained 1 + SHARDED_STEPS steps through ``dist.sharding.shard_model`` on
+    a one-rank NCCL ``DeviceMesh`` (1, 1), beside an unsharded copy from the
+    same start (run first, its end state kept on the host): loss, grad norm
+    and every parameter within PARITY_PARAM_ATOL of it; K2 once per step,
+    no graph kernel.  One card holds every axis at size 1, so this checks
+    DTensor, NCCL and K2 inside the step, not the exchange between cards;
+    the steps' wall time beside the unsharded one is DTensor's host cost."""
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.constrain import activation_sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import dbg_stream
+    from repro_torch.lm.model import init_params
+    from repro_torch.train.step import OptConfig, init_opt, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg, pipe, _ = dbg_stream(get_config(TRAIN_ARCH), TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in pipe.batch(i).items()}
+               for i in range(1 + SHARDED_STEPS)]
+    ts = make_train_step(cfg, OptConfig(**TRAIN_OPT))
+    counts = {}
+    model = init_params(cfg, seed=0, device=device)
+    opt = init_opt(model)
+    plain, plain_ms = _steps(ts, model, opt, batches, counts, "unsharded")
+    want = {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+    del model, opt
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    rendezvous = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    tdist.init_process_group("nccl", init_method=f"file://{rendezvous}/pg",
+                             rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        model = init_params(cfg, seed=0, device=device)
+        rules = shd.param_specs(model)  # before the size-1 axes drop
+        shd.shard_model(model, mesh)
+        opt = init_opt(model)
+        spec = (shd.batch_spec(mesh)[0], None)
+        placed = [{k: distribute_tensor(v, mesh, shd.placements(spec, mesh))
+                   for k, v in b.items()} for b in batches]
+        counts = {}
+        torch.cuda.reset_peak_memory_stats()
+        got, ms = _steps(ts, model, opt, placed, counts, "sharded",
+                         lambda: activation_sharding(mesh))
+        peak = torch.cuda.max_memory_allocated()
+        worst = dict(loss=0.0, grad_norm=0.0, params=0.0)
+        for g, w in zip(got, plain):
+            for key in ("loss", "grad_norm"):
+                worst[key] = max(worst[key], abs(g[key] - w[key])
+                                 / (PARITY_PARAM_ATOL * abs(w[key])))
+        not_dt = [n for n, p in model.named_parameters()
+                  if not isinstance(p, DTensor)]
+        for n, p in model.named_parameters():
+            diff = float((p.full_tensor().detach().cpu() - want[n]).abs().max())
+            worst["params"] = max(worst["params"], diff / PARITY_PARAM_ATOL)
+        del model, opt, placed, want
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    if not_dt or not all(v <= 1.0 for v in worst.values()):
+        raise AssertionError(f"sharded step off the unsharded one: worst "
+                             f"shares of PARITY_PARAM_ATOL {worst}; plain "
+                             f"tensors {not_dt[:4]}")
+    if counts["hot_gather"] != len(batches):
+        raise AssertionError(f"K2 launched {counts['hot_gather']} times over "
+                             f"{len(batches)} sharded steps")
+    t = TRAIN_BATCH * TRAIN_SEQ
+    return dict(arch=cfg.arch_id, mesh="1x1", steps=len(batches),
+                params_with_axes=sum(any(e is not None for e in sp)
+                                     for sp in rules.values()),
+                n_tensors=len(rules),
+                step_ms=statistics.median(ms[1:]), step_ms_all=ms,
+                plain_step_ms=statistics.median(plain_ms[1:]),
+                plain_step_ms_all=plain_ms,
+                tokens_per_s=t / statistics.median(ms[1:]) * 1e3,
+                losses=[m["loss"] for m in got],
+                plain_losses=[m["loss"] for m in plain],
+                worst_share=worst, peak_gib=peak / 2**30, launches=counts,
+                seconds=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------- phase 21
+def _train_depth(cfg, tokens):
+    """The depth (whole pattern periods, at most the published one) whose
+    float32 masters, gradients and two Adam moments (16 bytes a parameter)
+    fit in TRAIN_BLOCKS_GIB beside an activation allowance: the chunked
+    loss's logits (``tokens`` / TRAIN_BATCH x TRAIN_BLOCKS_LOSS_CHUNK rows
+    of the padded vocabulary, 16 bytes each: bf16 and float32 copies and
+    their gradients) and TRAIN_BLOCKS_SLACK_GIB.  Counted on ``meta``."""
+    import dataclasses
+
+    import repro_torch.lm.model as model_mod
+
+    plen = len(cfg.layer_pattern())
+
+    def n_params(n_layers):
+        c = dataclasses.replace(cfg, n_layers=n_layers)
+        return sum(p.numel() for p in
+                   model_mod.LM(c, device="meta").parameters())
+
+    one, two = n_params(plen), n_params(2 * plen)
+    per, base = two - one, one - (two - one)
+    vocab = model_mod.LM(cfg, device="meta").embed["unembed"].shape[1]
+    act = (TRAIN_BATCH * TRAIN_BLOCKS_LOSS_CHUNK * vocab * 16
+           + TRAIN_BLOCKS_SLACK_GIB * 2**30)
+    room = TRAIN_BLOCKS_GIB * 2**30 - act
+    periods = min(cfg.n_layers // plen, int((room / 16 - base) // per))
+    if periods < 1:
+        raise AssertionError(f"{cfg.arch_id}: not one period fits")
+    return periods * plen, base + periods * per, act
+
+
+def _moments(model, chunk=1 << 26):
+    """Each parameter's (sum, sum of squares) in float64, over chunks of
+    ``chunk`` elements (a float64 copy of a whole 256,000-row table would
+    not fit beside the training state): a change of any element moves
+    them."""
+    import torch
+
+    out = {}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            a = b = 0.0
+            for c in p.detach().reshape(-1).split(chunk):
+                c = c.double()
+                a += float(c.sum())
+                b += float(c.square().sum())
+            out[n] = (a, b)
+    return out
+
+
+def lm_train_blocks(device):
+    """Phase 21: TRAIN_BLOCK_ARCHS trained at their published widths, one
+    at a time, 1 + TRAIN_BLOCK_STEPS steps each on phase 18's stream
+    settings (the DBG-remapped Zipf stream, TRAIN_BATCH x TRAIN_SEQ), bf16
+    compute on float32 masters, the loss over chunks of
+    TRAIN_BLOCKS_LOSS_CHUNK positions; each cut to the depth
+    ``_train_depth`` allows (Mamba2 keeps its 48 layers).  Checks, as
+    phase 18 makes them: loss and grad norm finite, grad norm > 0, the
+    loss falling; after step 1 every parameter changed; K2 once per step
+    (counted from zero around each), no graph kernel."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import dbg_stream
+    from repro_torch.lm.model import init_params
+    from repro_torch.train.step import OptConfig, init_opt, make_train_step
+
+    out = {}
+    t_tok = TRAIN_BATCH * TRAIN_SEQ
+    for arch in TRAIN_BLOCK_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        published = get_config(arch)
+        depth, n_params, act = _train_depth(published, t_tok)
+        cfg, pipe, _ = dbg_stream(
+            dataclasses.replace(published, n_layers=depth), TRAIN_BATCH,
+            TRAIN_SEQ)
+        log(f"  {cfg.arch_id}: depth {depth} of {published.n_layers} "
+            f"layers, {n_params} parameters, {16 * n_params / 2**30:.2f} GiB"
+            f" of masters, gradients and moments predicted beside "
+            f"{act / 2**30:.2f} GiB of activation allowance")
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(cfg, seed=0, device=device)
+        opt = init_opt(model)
+        batches = [{k: torch.from_numpy(v).to(device)
+                    for k, v in pipe.batch(i).items()}
+                   for i in range(1 + TRAIN_BLOCK_STEPS)]
+        ts = make_train_step(cfg, OptConfig(**dict(
+            TRAIN_OPT, lr=TRAIN_BLOCKS_LR,
+            loss_chunk=TRAIN_BLOCKS_LOSS_CHUNK)))
+        counts = {}
+        before = _moments(model)
+        metrics, ms = _steps(ts, model, opt, batches[:1], counts, cfg.arch_id)
+        after = _moments(model)
+        same = [n for n in before if before[n] == after[n]]
+        if same:
+            raise AssertionError(f"{cfg.arch_id}: step 1 left {same[:4]} "
+                                 f"({len(same)}) unchanged")
+        more, more_ms = _steps(ts, model, opt, batches[1:], counts,
+                               cfg.arch_id)
+        metrics += more
+        ms += more_ms
+        # the first batch's loss again after the steps (a forward and
+        # backward, no update): training on the stream must have lowered it
+        again = float(_counted(counts, f"{cfg.arch_id} first batch again", 1,
+                               ts.grads_of, model, batches[0]))
+        peak = torch.cuda.max_memory_allocated()
+        losses = [m["loss"] for m in metrics]
+        for i, m in enumerate(metrics):
+            if not (all(x == x and abs(x) != float("inf")
+                        for x in m.values()) and m["grad_norm"] > 0):
+                raise AssertionError(f"{cfg.arch_id} step {i}: {m}")
+        if not again < losses[0]:
+            raise AssertionError(f"{cfg.arch_id}: the first batch's loss "
+                                 f"{losses[0]} -> {again} after the steps "
+                                 f"({losses})")
+        if counts["hot_gather"] != len(batches) + 1:
+            raise AssertionError(f"{cfg.arch_id}: K2 launched "
+                                 f"{counts['hot_gather']} times over "
+                                 f"{len(batches) + 1} forward passes")
+        del model, opt, batches
+        step_ms = statistics.median(ms[1:])
+        out[arch] = dict(
+            arch=cfg.arch_id, layers=depth, published_layers=published.n_layers,
+            n_params=n_params, state_gib=16 * n_params / 2**30,
+            activation_allowance_gib=act / 2**30, steps=len(ms),
+            first_step_ms=ms[0], step_ms=step_ms, step_ms_all=ms,
+            tokens_per_step=t_tok, tokens_per_s=t_tok / step_ms * 1e3,
+            peak_gib=peak / 2**30, losses=losses, lr=TRAIN_BLOCKS_LR,
+            first_batch_again=again,
+            grad_norms=[m["grad_norm"] for m in metrics], launches=counts,
+            seconds=time.perf_counter() - t0)
+        log(f"  {cfg.arch_id} ({depth} layers): {step_ms:.1f} ms per step "
+            f"(median of {len(ms) - 1} after the first, "
+            f"{ms[0]:.1f} ms), {t_tok / step_ms * 1e3:.0f} tokens/s, peak "
+            f"{peak / 2**30:.2f} GiB; losses {[round(x, 4) for x in losses]}"
+            f", the first batch's {losses[0]:.4f} -> {again:.4f} "
+            f"({out[arch]['seconds']:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     import gc
@@ -4614,6 +4912,35 @@ def main() -> int:
         f"{blocks_launches} ({time.perf_counter() - t0:.1f} s)")
     log(json.dumps({"lm_blocks": blocks, "card": smi}))
 
+    # 20. the sharded LM (A12.7): phase 18's step through shard_model on a
+    # one-rank NCCL mesh beside the unsharded step; counts read from zero
+    # around each step inside
+    t0 = time.perf_counter()
+    sh = lm_sharded(dev)
+    ws = sh["worst_share"]
+    log(f"LM sharded step: {sh['arch']} on a (1, 1) NCCL DeviceMesh, "
+        f"{sh['params_with_axes']} of {sh['n_tensors']} parameters with "
+        f"mesh axes in their rules (every axis of size 1: DTensor, NCCL and "
+        f"K2 in the step, no exchange); "
+        f"{sh['step_ms']:.1f} ms per step (median of {SHARDED_STEPS} after "
+        f"the first) against {sh['plain_step_ms']:.1f} ms unsharded "
+        f"(phase 18: {tr['step_ms']:.1f}); worst shares of "
+        f"PARITY_PARAM_ATOL: loss {ws['loss']:.3g}, grad norm "
+        f"{ws['grad_norm']:.3g}, parameters {ws['params']:.3g}; peak "
+        f"{sh['peak_gib']:.2f} GiB; launches {sh['launches']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(json.dumps({"lm_sharded": sh, "card": smi}))
+
+    # 21. the new block kinds trained at published widths (A12.8)
+    t0 = time.perf_counter()
+    tb = lm_train_blocks(dev)
+    train_blocks_launches = {k: sum(b["launches"].get(k, 0)
+                                    for b in tb.values())
+                             for k in _wrappers()}
+    log(f"LM block kinds trained: {list(tb)}, launches "
+        f"{train_blocks_launches} ({time.perf_counter() - t0:.1f} s)")
+    log(json.dumps({"lm_train_blocks": tb, "card": smi}))
+
     timed = {
         "ell_edge_map": dict(t, max_abs_err=max(
             e1, e2, t["max_abs_err"], sv["plane"]["max_abs_err"],
@@ -4639,7 +4966,9 @@ def main() -> int:
                    "lm_serve": lm["launches"][kname],
                    "lm_forward": fw["launches"][kname],
                    "lm_train": tr["launches"][kname],
-                   "lm_blocks": blocks_launches[kname]}
+                   "lm_blocks": blocks_launches[kname],
+                   "lm_sharded": sh["launches"].get(kname, 0),
+                   "lm_train_blocks": train_blocks_launches[kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,

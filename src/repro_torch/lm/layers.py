@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.constrain import (axis_size, constrain, full, is_sharded,
+                              replicate, reshape)
 from .embed import _normal
 
 __all__ = ["AttnDims", "MlaDims", "apply_norm", "attn_init", "cross_attn",
@@ -93,6 +95,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------- attention
+def _constrain_qkv(q, k, v, n_heads: int):
+    """Head-sharded when the model axis divides ``n_heads``; otherwise
+    sequence-sharded q with k and v replicated (the reference's choice:
+    padding an indivisible head axis costs collectives per block).  No-ops
+    off a mesh."""
+    hs = axis_size("model")
+    if hs and n_heads % hs == 0:
+        q = constrain(q, "batch", None, "model", None)
+        k = constrain(k, "batch", None, "model", None)  # drops if kv % hs
+        v = constrain(v, "batch", None, "model", None)
+    else:
+        q = constrain(q, "batch", "seq", None, None)
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
+    return q, k, v
+
+
 @dataclasses.dataclass(frozen=True)
 class AttnDims:
     n_heads: int
@@ -109,6 +128,30 @@ def attn_init(d_model: int, dims: AttnDims, **kw) -> nn.ModuleDict:
     })
 
 
+def _expand_kv(q, k, v):
+    """On a mesh, where q's head dim is split over ranks and GQA groups G
+    query heads on a KV head, k and v repeated to one head per query head
+    and split as q is: DTensor cannot unflatten a head dim split 16 ways
+    into (Hkv, G) when 16 does not divide Hkv.  Each query head reads the
+    same KV head's values either way.  (q, k, v) unchanged otherwise."""
+    from torch.distributed.tensor import Shard
+
+    h, hkv = q.shape[2], k.shape[2]
+    if h == hkv or not is_sharded(q) or not any(
+            isinstance(p, Shard) and p.dim == 2 and n > 1
+            for p, n in zip(q.placements, q.device_mesh.shape)):
+        return q, k, v
+    g = h // hkv
+
+    def rep(t):
+        b, s, _, d = t.shape
+        t = replicate(t, (2,))[:, :, :, None].expand(b, s, hkv, g, d)
+        t = t.reshape(b, s, h, d)
+        return t.redistribute(q.device_mesh, q.placements)
+
+    return q, rep(k), rep(v)
+
+
 def _blockwise_causal_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, block_q: int, block_k: int,
                            window: Optional[int] = None) -> torch.Tensor:
@@ -123,6 +166,7 @@ def _blockwise_causal_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     identity (``p`` is 0, ``alpha`` 1, or 0 on rows that have seen no key
     yet), so the result is the one the reference's full scan gives.
     """
+    q, k, v = _expand_kv(q, k, v)
     b, s, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     g = h // hkv
@@ -133,13 +177,11 @@ def _blockwise_causal_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = []
     for qi in range(s // block_q):
         q0 = qi * block_q
-        qr = q[:, q0:q0 + block_q].reshape(b, block_q, hkv, g, d)
+        qr = reshape(q[:, q0:q0 + block_q], b, block_q, hkv, g, d)
         qpos = torch.arange(q0, q0 + block_q, device=q.device)
-        m = torch.full((b, block_q, h), float("-inf"), dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((b, block_q, h), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, block_q, h, dv), dtype=torch.float32,
-                          device=q.device)
+        m = full(q, (b, block_q, h), float("-inf"), torch.float32)
+        l = full(q, (b, block_q, h), 0.0, torch.float32)
+        acc = full(q, (b, block_q, h, dv), 0.0, torch.float32)
         for ki in range(s // block_k):
             k0 = ki * block_k
             if k0 > q0 + block_q - 1:  # every key after every query
@@ -174,14 +216,15 @@ def mha(params, x: torch.Tensor, dims: AttnDims, *, positions: torch.Tensor,
     """Full-sequence causal (optionally sliding-window) GQA attention:
     (B, S, d_model) → (B, S, d_model), blocks of ``min(512, S)``."""
     b, s, _ = x.shape
-    q = (x @ params["q"]["w"]).reshape(b, s, dims.n_heads, dims.d_head)
-    k = (x @ params["k"]["w"]).reshape(b, s, dims.n_kv, dims.d_head)
-    v = (x @ params["v"]["w"]).reshape(b, s, dims.n_kv, dims.d_head)
+    q = reshape(x @ params["q"]["w"], b, s, dims.n_heads, dims.d_head)
+    k = reshape(x @ params["k"]["w"], b, s, dims.n_kv, dims.d_head)
+    v = reshape(x @ params["v"]["w"], b, s, dims.n_kv, dims.d_head)
+    q, k, v = _constrain_qkv(q, k, v, dims.n_heads)
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
     out = _blockwise_causal_attn(q, k, v, block_q=min(block_q, s),
                                  block_k=min(block_k, s), window=window)
-    return out.reshape(b, s, -1) @ params["o"]["w"]
+    return reshape(out, b, s, -1) @ params["o"]["w"]
 
 
 def mha_decode(params, x: torch.Tensor, dims: AttnDims,
@@ -198,23 +241,23 @@ def mha_decode(params, x: torch.Tensor, dims: AttnDims,
     b = x.shape[0]
     s_max = cache_k.shape[1]
     _check_position(s_max, cur_len)
-    q = (x @ params["q"]["w"]).reshape(b, 1, dims.n_heads, dims.d_head)
-    k = (x @ params["k"]["w"]).reshape(b, 1, dims.n_kv, dims.d_head)
-    v = (x @ params["v"]["w"]).reshape(b, 1, dims.n_kv, dims.d_head)
+    q = reshape(x @ params["q"]["w"], b, 1, dims.n_heads, dims.d_head)
+    k = reshape(x @ params["k"]["w"], b, 1, dims.n_kv, dims.d_head)
+    v = reshape(x @ params["v"]["w"], b, 1, dims.n_kv, dims.d_head)
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
     q = rope(q, pos, rope_theta)
     k = rope(k, pos, rope_theta)
     cache_k[:, cur_len] = k[:, 0].to(cache_k.dtype)
     cache_v[:, cur_len] = v[:, 0].to(cache_v.dtype)
     g = dims.n_heads // dims.n_kv
-    qr = q.reshape(b, dims.n_kv, g, dims.d_head)
+    qr = reshape(q, b, dims.n_kv, g, dims.d_head)
     sc = torch.einsum("bhgd,bshd->bhgs", qr.float(), cache_k.float())
     sc = sc / math.sqrt(dims.d_head)
     valid = torch.arange(s_max, device=x.device) <= cur_len
     sc = sc.masked_fill(~valid, float("-inf"))
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())
-    out = out.reshape(b, 1, dims.n_heads * dims.d_head).to(x.dtype)
+    out = reshape(out, b, 1, dims.n_heads * dims.d_head).to(x.dtype)
     return out @ params["o"]["w"]
 
 
@@ -238,6 +281,7 @@ def _blockwise_attn_nomask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Unmasked blockwise softmax attention (the encoder's): the reference's
     online softmax without masks or ``isfinite`` guards.  q: (B, S, H, D);
     k, v: (B, S, Hkv, D); S a multiple of both blocks."""
+    q, k, v = _expand_kv(q, k, v)
     b, s, h, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     g = h // hkv
@@ -247,12 +291,10 @@ def _blockwise_attn_nomask(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     outs = []
     for q0 in range(0, s, block_q):
-        qr = q[:, q0:q0 + block_q].reshape(b, block_q, hkv, g, d)
-        m = torch.full((b, block_q, h), float("-inf"), dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((b, block_q, h), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, block_q, h, dv), dtype=torch.float32,
-                          device=q.device)
+        qr = reshape(q[:, q0:q0 + block_q], b, block_q, hkv, g, d)
+        m = full(q, (b, block_q, h), float("-inf"), torch.float32)
+        l = full(q, (b, block_q, h), 0.0, torch.float32)
+        acc = full(q, (b, block_q, h, dv), 0.0, torch.float32)
         for k0 in range(0, s, block_k):
             sc = torch.einsum("bqhgd,bkhd->bqhgk", qr,
                               k[:, k0:k0 + block_k]) * scale
@@ -276,14 +318,15 @@ def mha_bidir(params, x: torch.Tensor, dims: AttnDims, *,
     """Bidirectional (encoder) attention, blockwise over keys in blocks of
     ``min(block, S)``: (B, S, d_model) → (B, S, d_model)."""
     b, s, _ = x.shape
-    q = (x @ params["q"]["w"]).reshape(b, s, dims.n_heads, dims.d_head)
-    k = (x @ params["k"]["w"]).reshape(b, s, dims.n_kv, dims.d_head)
-    v = (x @ params["v"]["w"]).reshape(b, s, dims.n_kv, dims.d_head)
+    q = reshape(x @ params["q"]["w"], b, s, dims.n_heads, dims.d_head)
+    k = reshape(x @ params["k"]["w"], b, s, dims.n_kv, dims.d_head)
+    v = reshape(x @ params["v"]["w"], b, s, dims.n_kv, dims.d_head)
+    q, k, v = _constrain_qkv(q, k, v, dims.n_heads)
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
     bq = min(block, s)
     out = _blockwise_attn_nomask(q, k, v, block_q=bq, block_k=bq)
-    return out.reshape(b, s, -1) @ params["o"]["w"]
+    return reshape(out, b, s, -1) @ params["o"]["w"]
 
 
 def cross_attn(params, x: torch.Tensor, memory: torch.Tensor,
@@ -293,14 +336,14 @@ def cross_attn(params, x: torch.Tensor, memory: torch.Tensor,
     over the memory, no positions."""
     b, s, _ = x.shape
     sm = memory.shape[1]
-    q = (x @ params["q"]["w"]).reshape(b, s, dims.n_heads, dims.d_head)
-    k = (memory @ params["k"]["w"]).reshape(b, sm, dims.n_kv, dims.d_head)
-    v = (memory @ params["v"]["w"]).reshape(b, sm, dims.n_kv, dims.d_head)
+    q = reshape(x @ params["q"]["w"], b, s, dims.n_heads, dims.d_head)
+    k = reshape(memory @ params["k"]["w"], b, sm, dims.n_kv, dims.d_head)
+    v = reshape(memory @ params["v"]["w"], b, sm, dims.n_kv, dims.d_head)
     g = dims.n_heads // dims.n_kv
-    qr = q.reshape(b, s, dims.n_kv, g, dims.d_head)
+    qr = reshape(q, b, s, dims.n_kv, g, dims.d_head)
     sc = torch.einsum("bqhgd,bkhd->bqhgk", qr, k) / math.sqrt(dims.d_head)
     p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v).reshape(b, s, -1)
+    out = reshape(torch.einsum("bqhgk,bkhd->bqhgd", p, v), b, s, -1)
     return out.to(x.dtype) @ params["o"]["w"]
 
 
@@ -336,18 +379,18 @@ def mla(params, x: torch.Tensor, dims: MlaDims, *, positions: torch.Tensor,
     from the latent."""
     b, s, _ = x.shape
     h = dims.n_heads
-    q = (x @ params["q"]["w"]).reshape(b, s, h, dims.d_nope + dims.d_rope)
+    q = reshape(x @ params["q"]["w"], b, s, h, dims.d_nope + dims.d_rope)
     q_nope, q_rope = q[..., :dims.d_nope], q[..., dims.d_nope:]
     q_full = torch.cat([q_nope, rope(q_rope, positions, rope_theta)], dim=-1)
     latent = x @ params["kv_down"]["w"]  # (B, S, kv_lora)
     k_rope = rope((x @ params["k_rope"]["w"])[:, :, None, :], positions,
                   rope_theta)
-    k_nope = (latent @ params["k_up"]["w"]).reshape(b, s, h, dims.d_nope)
+    k_nope = reshape(latent @ params["k_up"]["w"], b, s, h, dims.d_nope)
     k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dims.d_rope)], dim=-1)
-    v = (latent @ params["v_up"]["w"]).reshape(b, s, h, dims.d_v)
+    v = reshape(latent @ params["v_up"]["w"], b, s, h, dims.d_v)
     out = _blockwise_causal_attn(q_full, k_full, v, block_q=min(block_q, s),
                                  block_k=min(block_k, s))
-    return out.reshape(b, s, -1) @ params["o"]["w"]
+    return reshape(out, b, s, -1) @ params["o"]["w"]
 
 
 def mla_decode(params, x: torch.Tensor, dims: MlaDims,
@@ -362,7 +405,7 @@ def mla_decode(params, x: torch.Tensor, dims: MlaDims,
     h = dims.n_heads
     s_max = cache_latent.shape[1]
     _check_position(s_max, cur_len)
-    q = (x @ params["q"]["w"]).reshape(b, 1, h, dims.d_nope + dims.d_rope)
+    q = reshape(x @ params["q"]["w"], b, 1, h, dims.d_nope + dims.d_rope)
     q_nope, q_rope = q[..., :dims.d_nope], q[..., dims.d_nope:]
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
     q_rope = rope(q_rope, pos, rope_theta)
@@ -371,9 +414,10 @@ def mla_decode(params, x: torch.Tensor, dims: MlaDims,
                    rope_theta)[:, :, 0]
     cache_latent[:, cur_len] = latent_t[:, 0].to(cache_latent.dtype)
     cache_krope[:, cur_len] = krope_t[:, 0].to(cache_krope.dtype)
-    k_nope = _mm(cache_latent, params["k_up"]["w"]).reshape(
-        b, s_max, h, dims.d_nope)
-    v = _mm(cache_latent, params["v_up"]["w"]).reshape(b, s_max, h, dims.d_v)
+    k_nope = reshape(_mm(cache_latent, params["k_up"]["w"]), b, s_max, h,
+                     dims.d_nope)
+    v = reshape(_mm(cache_latent, params["v_up"]["w"]), b, s_max, h,
+                dims.d_v)
     sc = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
     sc = sc + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
                            cache_krope.float())
@@ -382,7 +426,7 @@ def mla_decode(params, x: torch.Tensor, dims: MlaDims,
     sc = sc.masked_fill(~valid, float("-inf"))
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    return out.reshape(b, 1, -1).to(x.dtype) @ params["o"]["w"]
+    return reshape(out, b, 1, -1).to(x.dtype) @ params["o"]["w"]
 
 
 # ---------------------------------------------------------------- MLP

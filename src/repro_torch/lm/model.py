@@ -24,6 +24,8 @@ copies included (``train.step``).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -33,13 +35,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..dist.constrain import constrain, is_sharded, reshape
+from ..dist.constrain import positions as dist_positions
 from . import embed as embed_mod
 from . import layers as L
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 
 __all__ = ["Block", "LM", "decode_step", "forward", "has_linear_cache",
-           "init_cache", "init_params", "loss_fn", "unembed_apply"]
+           "init_cache", "init_params", "loss_fn", "on_mesh",
+           "unembed_apply"]
 
 #: The encoder-decoder stub's cross-attention memory in the decode cache:
 #: zeros over a fixed S_enc, as the reference allocates it.
@@ -191,9 +196,9 @@ def _mha_decode_ring(p, h: torch.Tensor, cfg: ArchConfig,
     dims = _attn_dims(cfg)
     b = h.shape[0]
     w = cache["k"].shape[1]
-    q = (h @ p["q"]["w"]).reshape(b, 1, dims.n_heads, dims.d_head)
-    k = (h @ p["k"]["w"]).reshape(b, 1, dims.n_kv, dims.d_head)
-    v = (h @ p["v"]["w"]).reshape(b, 1, dims.n_kv, dims.d_head)
+    q = reshape(h @ p["q"]["w"], b, 1, dims.n_heads, dims.d_head)
+    k = reshape(h @ p["k"]["w"], b, 1, dims.n_kv, dims.d_head)
+    v = reshape(h @ p["v"]["w"], b, 1, dims.n_kv, dims.d_head)
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=h.device)
     q = L.rope(q, pos, cfg.rope_theta)
     k = L.rope(k, pos, cfg.rope_theta)
@@ -203,14 +208,14 @@ def _mha_decode_ring(p, h: torch.Tensor, cfg: ArchConfig,
     cpos = cache["pos"]
     cpos[slot] = cur_len
     g = dims.n_heads // dims.n_kv
-    qr = q.reshape(b, dims.n_kv, g, dims.d_head)
+    qr = reshape(q, b, dims.n_kv, g, dims.d_head)
     sc = torch.einsum("bhgd,bshd->bhgs", qr.float(), cache["k"].float())
     sc = sc / math.sqrt(dims.d_head)
     valid = (cpos >= 0) & (cpos > cur_len - w) & (cpos <= cur_len)
     sc = sc.masked_fill(~valid, float("-inf"))
     pr = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", pr, cache["v"].float())
-    out = out.reshape(b, 1, dims.n_heads * dims.d_head).to(h.dtype)
+    out = reshape(out, b, 1, dims.n_heads * dims.d_head).to(h.dtype)
     return out @ p["o"]["w"]
 
 
@@ -220,12 +225,12 @@ def _cross_decode(p, x: torch.Tensor, cfg: ArchConfig, ck: torch.Tensor,
     (B, S_enc, Hkv, D), a full float32 softmax."""
     dims = _attn_dims(cfg)
     b = x.shape[0]
-    q = (x @ p["q"]["w"]).reshape(b, 1, dims.n_heads, dims.d_head)
-    qr = q.reshape(b, dims.n_kv, dims.n_heads // dims.n_kv, dims.d_head)
+    q = reshape(x @ p["q"]["w"], b, 1, dims.n_heads, dims.d_head)
+    qr = reshape(q, b, dims.n_kv, dims.n_heads // dims.n_kv, dims.d_head)
     sc = torch.einsum("bhgd,bshd->bhgs", qr.float(), ck.float())
     pr = torch.softmax(sc / math.sqrt(dims.d_head), dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", pr, cv.float())
-    return out.reshape(b, 1, -1).to(x.dtype) @ p["o"]["w"]
+    return reshape(out, b, 1, -1).to(x.dtype) @ p["o"]["w"]
 
 
 class LM(nn.Module):
@@ -264,6 +269,39 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     return LM(cfg, generator=gen, device=dev, dtype=dtype)
 
 
+def on_mesh(model: LM):
+    """A context in which a sharded model's functions run
+    (``dist.sharding.shard_model``): DTensor's implicit replication, so
+    the tensors they make themselves (positions, masks, accumulators) join
+    DTensor ops as replicated.  Nothing for a model of plain tensors."""
+    if not is_sharded(next(model.parameters())):
+        return contextlib.nullcontext()
+    return _implicit_replication()
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """``torch.distributed.tensor.experimental.implicit_replication`` made
+    re-entrant: that one clears the flag on exit even inside another."""
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    prev = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = prev
+
+
+def _on_mesh(fn):
+    @functools.wraps(fn)
+    def wrapped(model, *args, **kwargs):
+        with on_mesh(model):
+            return fn(model, *args, **kwargs)
+    return wrapped
+
+
 def _block_with(block: Block, names, cfg, x, positions, memory, *tensors):
     return torch.func.functional_call(block, dict(zip(names, tensors)),
                                       (cfg, x, positions, memory))
@@ -281,10 +319,6 @@ def _layer(block: Block, cfg: ArchConfig, x: torch.Tensor,
                       *tensors, use_reentrant=False)
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
-
-
 def _encode(model: LM, frames: torch.Tensor) -> torch.Tensor:
     """The encoder stack over the stub frame embeddings (B, S_src, D), then
     ``enc_norm``: the cross attention's memory."""
@@ -293,12 +327,13 @@ def _encode(model: LM, frames: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{cfg.arch_id} has no encoder; frames= is for "
                          "enc-dec configs")
     x = frames
-    positions = _positions(x.shape[0], x.shape[1], x.device)
+    positions = dist_positions(x)
     for block in model.encoder:
         x, _ = block(cfg, x, positions)
     return L.apply_norm(cfg.norm, model.enc_norm, x)
 
 
+@_on_mesh
 def forward(model: LM, tokens: torch.Tensor, *,
             prefix: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, last_only: bool = False,
@@ -318,18 +353,27 @@ def forward(model: LM, tokens: torch.Tensor, *,
         x = torch.cat([pe.to(x.dtype), x], dim=1)
     memory = _encode(model, frames) if frames is not None else None
     b, s, _ = x.shape
-    positions = _positions(b, s, x.device)
+    x = constrain(x, "batch", None, None)
+    positions = dist_positions(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block in model.layers:
+    plen = len(cfg.layer_pattern())
+    in_periods = (cfg.n_layers // plen) * plen
+    # Megatron-SP: the residual at each period's edges shards along S
+    seq_axis = "seq" if cfg.seq_parallel else None
+    for i, block in enumerate(model.layers):
+        if i < in_periods and i % plen == 0:
+            x = constrain(x, "batch", seq_axis, None)
         x, a = _layer(block, cfg, x, positions, memory)
         if a is not None:
             aux = aux + a
+        if i < in_periods and i % plen == plen - 1:
+            x = constrain(x, "batch", seq_axis, None)
     x = L.apply_norm(cfg.norm, model.final_norm, x)
     if return_hidden:
         return x, aux
     if last_only:
         x = x[:, -1:]
-    return unembed_apply(model, x), aux
+    return constrain(unembed_apply(model, x), "batch", None, "model"), aux
 
 
 def unembed_apply(model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -340,9 +384,66 @@ def unembed_apply(model: LM, x: torch.Tensor) -> torch.Tensor:
 def _ce_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Summed cross-entropy of ``labels`` under ``logits``, in float32."""
     logits = logits.float()
+    if is_sharded(logits) and _vocab_split(logits):
+        return _sharded_ce(logits, labels).sum()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (logz - gold).sum()
+
+
+def _vocab_split(logits) -> bool:
+    """Whether a DTensor's last dim is split over more than one rank."""
+    from torch.distributed.tensor import Shard
+
+    last = logits.dim() - 1
+    return any(isinstance(p, Shard) and p.dim == last and n > 1
+               for p, n in zip(logits.placements, logits.device_mesh.shape))
+
+
+def _sharded_ce(logits, labels: torch.Tensor):
+    """Per-position ``logsumexp(logits) - logits[labels]`` of a float32
+    DTensor whose vocabulary (last dim) may be split: Megatron's
+    vocab-parallel cross entropy on the local shards.  DTensor's own
+    ``logsumexp`` gathers the whole logits and its ``gather`` of a split
+    dim fails.  Each rank takes its slice's max (a max over the ranks that
+    split the vocabulary), its sum of exponentials and the labels that
+    fall in its slice (sums over those ranks)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    lead = [p if isinstance(p, Shard) and p.dim < last else Replicate()
+            for p in logits.placements]
+    split = [isinstance(p, Shard) and p.dim == last for p in logits.placements]
+
+    def pending(op, local, grad=True):
+        out = [Partial(op) if sp else q for sp, q in zip(split, lead)]
+        return DTensor.from_local(local, mesh, out, run_check=False,
+                                  grad_placements=lead if grad else None)
+
+    if not is_sharded(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, lead).to_local().long()
+    _, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    local = logits.to_local()
+    m = pending("max", local.detach().amax(-1), grad=False)
+    m = m.redistribute(mesh, lead)
+    sumexp = pending("sum", torch.exp(local - m.to_local()[..., None]).sum(-1))
+    idx = lab - offset[last]
+    inside = (idx >= 0) & (idx < local.shape[-1])
+    picked = local.gather(-1, idx.clamp(0, local.shape[-1] - 1)[..., None])
+    gold = pending("sum", torch.where(inside, picked[..., 0], 0.0))
+    return torch.log(sumexp) + m - gold
+
+
+def _text(x: torch.Tensor, skip: int) -> torch.Tensor:
+    """The positions past a VLM prefix of ``skip``: ``x`` itself when there
+    is none (a slice's backward has no DTensor strategy but a replicated
+    one, which would gather the whole gradient)."""
+    return x[:, skip:] if skip else x
 
 
 def _chunk_ce(w: torch.Tensor, hx: torch.Tensor,
@@ -350,6 +451,7 @@ def _chunk_ce(w: torch.Tensor, hx: torch.Tensor,
     return _ce_sum(hx @ w, lx)
 
 
+@_on_mesh
 def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor, *,
             prefix: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, aux_weight: float = 0.01,
@@ -367,7 +469,7 @@ def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor, *,
     if loss_chunk:
         hidden, aux = forward(model, tokens, prefix=prefix, frames=frames,
                               return_hidden=True)
-        hidden = hidden[:, skip:]
+        hidden = _text(hidden, skip)
         b, s, _ = hidden.shape
         c = min(loss_chunk, s)
         nc = s // c
@@ -380,7 +482,7 @@ def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor, *,
         ce = total / (b * nc * c)
     else:
         logits, aux = forward(model, tokens, prefix=prefix, frames=frames)
-        ce = _ce_sum(logits[:, skip:], labels) / labels.numel()
+        ce = _ce_sum(_text(logits, skip), labels) / labels.numel()
     return ce + aux_weight * aux / max(1, cfg.n_layers)
 
 
@@ -443,6 +545,7 @@ def has_linear_cache(cfg: ArchConfig) -> bool:
 
 
 @torch.no_grad()
+@_on_mesh
 def decode_step(model: LM, cache: Dict[str, Any], token: torch.Tensor):
     """One new token for every sequence; token: (B, 1) integer.  Returns
     (logits (B, 1, padded V), cache) — the cache's tensors are updated in

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.constrain import constrain
 from .embed import _normal
 
 __all__ = ["MoeDims", "capacity", "moe_apply", "moe_apply_ref", "moe_init",
@@ -137,10 +138,15 @@ def moe_apply(params, x: torch.Tensor, dims: MoeDims):
                        e * cap + torch.arange(t * k, device=x.device))
     rows = torch.zeros((e * cap + t * k, d), dtype=x.dtype, device=x.device)
     panels = rows.index_copy(0, dest, xt[src])[:e * cap].view(e, cap, d)
+    # capacity rows on the batch axes, the FF dim on 'model' through the
+    # weights' placements (no-ops off a mesh)
+    panels = constrain(panels, None, "batch", None)
 
     h = F.silu(torch.bmm(panels, params["gate"]))
     h = h * torch.bmm(panels, params["up"])
+    h = constrain(h, None, "batch", "model")
     out_panels = torch.bmm(h, params["down"])  # (E, C, d)
+    out_panels = constrain(out_panels, None, "batch", None)
 
     gathered = out_panels[flat_e, flat_r]  # (T*K, d)
     yt = (gathered * flat_w[:, None]).reshape(t, k, d).sum(dim=1)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.constrain import einsum, full, reshape
 from .embed import _normal
 from .layers import _gelu, dense_init
 
@@ -88,8 +89,8 @@ def _causal_conv(xs: torch.Tensor, conv_w: torch.Tensor,
     ``silu`` of the convolution and the last K-1 inputs, before the
     activation: the decode state."""
     k = conv_w.shape[0]
-    pad = (torch.zeros((xs.shape[0], k - 1, xs.shape[2]), dtype=xs.dtype,
-                       device=xs.device) if state is None else state)
+    pad = (full(xs, (xs.shape[0], k - 1, xs.shape[2]), 0.0, xs.dtype)
+           if state is None else state)
     xp = torch.cat([pad, xs], dim=1)
     s = xs.shape[1]
     out = sum(xp[:, i:i + s] * conv_w[i] for i in range(k))
@@ -105,8 +106,8 @@ def ssd(params, x: torch.Tensor, dims: SsdDims) -> torch.Tensor:
     bsz, s_orig, _ = x.shape
     pad = (-s_orig) % dims.chunk
     if pad:
-        x = torch.cat([x, torch.zeros((bsz, pad, x.shape[2]), dtype=x.dtype,
-                                      device=x.device)], dim=1)
+        x = torch.cat([x, full(x, (bsz, pad, x.shape[2]), 0.0, x.dtype)],
+                      dim=1)
     s = x.shape[1]
     z, xs, bmat, cmat, dt = _split_proj(params, x, dims)
     xs, _ = _causal_conv(xs, params["conv_w"])
@@ -116,11 +117,11 @@ def ssd(params, x: torch.Tensor, dims: SsdDims) -> torch.Tensor:
     log_alpha = dt * a[None, None, :]  # per-step decay exp(dt · a) in (0, 1)
 
     nc, ch = s // dims.chunk, dims.chunk
-    xh = xs.reshape(bsz, nc, ch, h, dh)
-    bmat = bmat.reshape(bsz, nc, ch, n)
-    cmat = cmat.reshape(bsz, nc, ch, n)
-    dtc = dt.reshape(bsz, nc, ch, h)
-    la_cum = torch.cumsum(log_alpha.reshape(bsz, nc, ch, h), dim=2)
+    xh = reshape(xs, bsz, nc, ch, h, dh)
+    bmat = reshape(bmat, bsz, nc, ch, n)
+    cmat = reshape(cmat, bsz, nc, ch, n)
+    dtc = reshape(dt, bsz, nc, ch, h)
+    la_cum = torch.cumsum(reshape(log_alpha, bsz, nc, ch, h), dim=2)
 
     # intra-chunk: score[t, u] = C_t · B_u · exp(La_t - La_u) · dt_u, u <= t
     cb = torch.einsum("bntk,bnuk->bntu", cmat, bmat)
@@ -138,7 +139,7 @@ def ssd(params, x: torch.Tensor, dims: SsdDims) -> torch.Tensor:
     contrib = torch.einsum("bnuh,bnuk,bnuhd->bnhkd", torch.exp(rem) * dtc,
                            bmat, xh).float()  # (B, nc, H, N, dh)
     decay = torch.exp(la_cum[:, :, -1, :])  # (B, nc, H)
-    state = torch.zeros((bsz, h, n, dh), dtype=torch.float32, device=x.device)
+    state = full(contrib, (bsz, h, n, dh), 0.0, torch.float32)
     h_in = []
     for c in range(nc):
         h_in.append(state)
@@ -147,9 +148,9 @@ def ssd(params, x: torch.Tensor, dims: SsdDims) -> torch.Tensor:
 
     y_inter = torch.einsum("bntk,bnth,bnhkd->bnthd", cmat, torch.exp(la_cum),
                            h_in.to(x.dtype))
-    y = (y_intra + y_inter).reshape(bsz, s, h, dh)
-    y = y + xh.reshape(bsz, s, h, dh) * params["D"][None, None, :, None]
-    y = y.reshape(bsz, s, dims.d_inner) * F.silu(z)
+    y = reshape(y_intra + y_inter, bsz, s, h, dh)
+    y = y + reshape(xh, bsz, s, h, dh) * params["D"][None, None, :, None]
+    y = reshape(y, bsz, s, dims.d_inner) * F.silu(z)
     out = y @ params["out_proj"]["w"]
     return out[:, :s_orig] if pad else out
 
@@ -162,15 +163,15 @@ def ssd_decode(params, x: torch.Tensor, dims: SsdDims, hstate: torch.Tensor,
     z, xs, bvec, cvec, dt = _split_proj(params, x, dims)
     xs, conv_tail = _causal_conv(xs, params["conv_w"], state=conv_tail)
     h, dh = dims.n_heads, dims.d_head
-    xh = xs.reshape(bsz, h, dh)
+    xh = reshape(xs, bsz, h, dh)
     dt = F.softplus(dt + params["dt_bias"])[:, 0]  # (B, H)
     a = -torch.exp(params["A_log"])
     alpha = torch.exp(dt * a[None, :])
-    hstate = hstate * alpha[..., None, None] + torch.einsum(
+    hstate = hstate * alpha[..., None, None] + einsum(
         "bh,bk,bhd->bhkd", dt, bvec[:, 0], xh)
-    y = torch.einsum("bk,bhkd->bhd", cvec[:, 0].to(hstate.dtype), hstate)
+    y = einsum("bk,bhkd->bhd", cvec[:, 0].to(hstate.dtype), hstate)
     y = y + xh * params["D"][None, :, None]
-    y = y.reshape(bsz, 1, dims.d_inner) * F.silu(z)
+    y = reshape(y, bsz, 1, dims.d_inner) * F.silu(z)
     return y @ params["out_proj"]["w"], hstate, conv_tail
 
 

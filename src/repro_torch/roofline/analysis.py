@@ -20,9 +20,13 @@ has one profile, ``"h100"``, whose numbers ``chip_smoke.py``
     engine (``repro_torch.dist``) runs, but the link rate between cards
     has not been measured: that waits for a machine with four cards.
 
-The XLA dry-run parsers (``parse_hlo_costs``, ``parse_collective_bytes``),
-``model_flops`` and ``roofline_terms`` read compiled XLA artifacts and wait
-for the sharded LM (ROADMAP A12).
+``model_flops`` and ``roofline_terms`` are the reference's, copied: the
+dry run (``repro_torch.launch.dryrun``) prices each cell with them.  With
+the ``"h100"`` profile ``link_bw`` is infinite, so ``collective_s`` is 0
+and ``roofline_terms`` says so.  The reference's XLA parsers
+(``parse_hlo_costs``, ``parse_collective_bytes`` and their helpers) read
+XLA's optimized HLO text, which the port never produces, and are not
+ported: the dry run's dispatch-mode counters take their role.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import dataclasses
 import math
 from typing import Dict, Optional
 
-__all__ = ["HW", "HW_PROFILES"]
+__all__ = ["HW", "HW_PROFILES", "model_flops", "roofline_terms"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,3 +76,31 @@ HW_PROFILES: Dict[str, HW] = {
     "h100": HW(peak_flops=51.104e12, hbm_bw=3.0248e12, link_bw=math.inf,
                dispatch_overhead=0.0, name="h100"),
 }
+
+
+def model_flops(n_active_params: float, tokens: float, kind: str) -> float:
+    """6·N·D for a train step; 2·N·D for forward-only (prefill/decode)."""
+    return (6.0 if kind == "train" else 2.0) * n_active_params * tokens
+
+
+def roofline_terms(flops_per_device: float, bytes_per_device: float,
+                   collective_bytes_per_device: float,
+                   hw: Optional[HW] = None) -> Dict[str, object]:
+    """The three roofline terms in seconds, the dominant one and the bound
+    (the reference's), on ``hw`` (``HW.profile()`` when None).  Where the
+    profile's ``link_bw`` is infinite (unmeasured), ``collective_s`` is 0
+    and ``collective_note`` says so."""
+    hw = HW.profile() if hw is None else hw
+    c = flops_per_device / hw.peak_flops
+    m = bytes_per_device / hw.hbm_bw
+    n = collective_bytes_per_device / hw.link_bw
+    dominant = max(("compute", c), ("memory", m), ("collective", n),
+                   key=lambda kv: kv[1])[0]
+    out: Dict[str, object] = {"compute_s": c, "memory_s": m,
+                              "collective_s": n, "dominant": dominant,
+                              "bound_s": max(c, m, n)}
+    if math.isinf(hw.link_bw):
+        out["collective_note"] = (
+            f"link_bw of the {hw.name!r} profile is infinite (no link rate "
+            "measured): collective_s is 0, not a measurement")
+    return out

@@ -9,9 +9,9 @@ differ in their epsilon and clip formulas): the clip scale
 ``min(1, clip / max(‖g‖, 1e-9))``, bias-corrected moments,
 ``m̂ / (√v̂ + eps)`` plus decoupled weight decay on the reference's leaves
 of two or more dimensions.  The reference stacks the layers of its scanned
-periods, so there a norm's scale is a (periods, d) leaf and decays, while a
-tail layer's scale and the final norm's do not; :func:`decays` keeps that
-rule by name.  The optimizer state is ``{"m": {name: tensor}, "v": {...},
+periods and its encoder, so there a norm's scale is a (periods, d) leaf
+and decays, while a tail layer's scale and the final norm's do not;
+:func:`decays` keeps that rule by name.  The optimizer state is ``{"m": {name: tensor}, "v": {...},
 "step": int32 scalar}`` by state-dict name.
 """
 from __future__ import annotations
@@ -24,6 +24,8 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..dist.constrain import is_sharded
+from ..dist.sharding import stack_size
 from ..lm import model as model_mod
 
 __all__ = ["OptConfig", "cast_params", "decays", "init_opt",
@@ -61,12 +63,9 @@ def init_opt(model: nn.Module, moment_dtype=torch.float32) -> Dict[str, Any]:
 
 def decays(cfg: ArchConfig, name: str, p: torch.Tensor) -> bool:
     """Whether ``name`` takes weight decay: its rank in the reference's
-    tree, one more than here for a layer of a stacked period, is >= 2."""
-    stacked = 0
-    if name.startswith("layers."):
-        plen = len(cfg.layer_pattern())
-        stacked = int(int(name.split(".")[1]) < (cfg.n_layers // plen) * plen)
-    return p.dim() + stacked >= 2
+    tree, one more than here for a layer of a stacked period or of the
+    (stacked) encoder, is >= 2."""
+    return p.dim() + bool(stack_size(cfg, name)) >= 2
 
 
 def _schedule(step: torch.Tensor, oc: OptConfig) -> torch.Tensor:
@@ -78,7 +77,29 @@ def _schedule(step: torch.Tensor, oc: OptConfig) -> torch.Tensor:
 
 
 def _global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    """The L2 norm over every element of ``tensors``; over every shard of
+    DTensors (a plain, replicated result)."""
+    return _whole(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a plain tensor: a DTensor's full value on every rank."""
+    return t.full_tensor() if is_sharded(t) else t
+
+
+def _rows(t: torch.Tensor, j: int, a: int) -> torch.Tensor:
+    """Rows ``j, j + a, ...`` of ``t``; of a DTensor batch split on rows,
+    each rank takes them of its own rows (the same rows in another order
+    when ``a`` divides the rows per rank; a loss sums them alike)."""
+    if is_sharded(t):
+        from torch.distributed.tensor import DTensor, Shard
+
+        local = t.to_local()
+        if (any(isinstance(p, Shard) and p.dim == 0 for p in t.placements)
+                and local.shape[0] % a == 0):
+            return DTensor.from_local(local[j::a], t.device_mesh,
+                                      t.placements, run_check=False)
+    return t[j::a]
 
 
 def cast_params(model: nn.Module, dtype) -> Dict[str, torch.Tensor]:
@@ -97,16 +118,22 @@ class _Loss(nn.Module):
         self.model = model
         self.loss_chunk = loss_chunk
 
-    def forward(self, tokens, labels):
-        return model_mod.loss_fn(self.model, tokens, labels,
-                                 loss_chunk=self.loss_chunk)
+    def forward(self, tokens, labels, prefix=None, frames=None):
+        return model_mod.loss_fn(self.model, tokens, labels, prefix=prefix,
+                                 frames=frames, loss_chunk=self.loss_chunk)
 
 
 def make_train_step(cfg: ArchConfig, oc: OptConfig):
     """Returns ``train_step(model, opt, batch) -> metrics``.
 
     ``batch``: ``{"tokens", "labels"}`` (B, S) integer tensors on the
-    model's device.  The step updates the model's parameters and ``opt``
+    model's device, and the stub inputs of the families that take them
+    (``prefix``, ``frames``).  A sharded model (``dist.sharding.
+    shard_model``) takes DTensor batches split on rows: the step runs on
+    every rank's shards, the gradients reduced to the parameters'
+    placements, the norm over every shard.
+
+    The step updates the model's parameters and ``opt``
     in place, leaves the float32 master gradients in each parameter's
     ``grad``, and returns ``{"loss", "grad_norm", "lr"}`` as device scalars:
     nothing is read back to the host.  Its halves are attributes:
@@ -119,10 +146,12 @@ def make_train_step(cfg: ArchConfig, oc: OptConfig):
         params = (cast_params(model, cdtype) if cdtype != torch.float32
                   else dict(model.named_parameters()))
         params = {"model." + n: p for n, p in params.items()}
-        loss = torch.func.functional_call(
-            loss_mod, params, (batch["tokens"], batch["labels"]))
-        loss.backward()
-        return loss.detach()
+        with model_mod.on_mesh(model):
+            loss = torch.func.functional_call(
+                loss_mod, params, (batch["tokens"], batch["labels"],
+                                   batch.get("prefix"), batch.get("frames")))
+            loss.backward()
+        return _whole(loss.detach())
 
     def grads_of(model, batch):
         for p in model.parameters():
@@ -136,8 +165,8 @@ def make_train_step(cfg: ArchConfig, oc: OptConfig):
         loss = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
         for j in range(a):
-            loss = loss + backward(loss_mod, model,
-                                   {k: v[j::a] for k, v in batch.items()})
+            loss = loss + backward(
+                loss_mod, model, {k: _rows(v, j, a) for k, v in batch.items()})
         inv = 1.0 / a
         for p in model.parameters():
             p.grad.mul_(inv)
@@ -153,7 +182,10 @@ def make_train_step(cfg: ArchConfig, oc: OptConfig):
         b1c = 1.0 - oc.b1 ** t
         b2c = 1.0 - oc.b2 ** t
         for name, p in model.named_parameters():
-            g = p.grad.float() * scale
+            g = p.grad
+            if is_sharded(p) and g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)
+            g = g.float() * scale
             m, v = opt["m"][name], opt["v"][name]
             # float32 moments update in place; others through a copy
             m32 = (m if m.dtype == torch.float32 else m.float()).mul_(oc.b1)
@@ -171,7 +203,8 @@ def make_train_step(cfg: ArchConfig, oc: OptConfig):
 
     def apply(model, opt) -> Dict[str, torch.Tensor]:
         gnorm = _global_norm(p.grad for p in model.parameters())
-        return {"grad_norm": gnorm, "lr": update(model, opt, gnorm)}
+        with model_mod.on_mesh(model):
+            return {"grad_norm": gnorm, "lr": update(model, opt, gnorm)}
 
     def train_step(model, opt, batch) -> Dict[str, torch.Tensor]:
         loss = grads_of(model, batch)

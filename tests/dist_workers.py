@@ -5,6 +5,10 @@
     python tests/dist_workers.py torch-stream OUT_DIR RANK WORLD INIT_FILE
     python tests/dist_workers.py jax-compress OUT.npz D
     python tests/dist_workers.py torch-compress OUT_DIR RANK WORLD INIT_FILE
+    python tests/dist_workers.py torch-lm OUT_DIR RANK WORLD INIT_FILE
+    python tests/dist_workers.py torch-pipeline OUT_DIR RANK WORLD INIT_FILE
+    python tests/dist_workers.py jax-pipeline OUT.npz D
+    python tests/dist_workers.py torch-dryrun OUT_DIR
 
 ``jax`` computes the reference's sharded edge maps, delta-segment maps and
 PageRank at D host devices (every layout's outputs under one ``jax.jit``,
@@ -15,8 +19,12 @@ reduction, as each interpreted kernel costs seconds to trace).  ``torch-graph`` 
 the single-device service.  ``jax-compress`` and ``torch-compress`` are
 the int8 compressed mean over D participants: the reference's
 ``compressed_psum`` under ``shard_map``, and one rank of the port's
-``compressed_all_reduce`` in a gloo group.  Each writes its outputs to an npz file that the
-tests compare.  Not collected by pytest (no ``test_`` prefix).
+``compressed_all_reduce`` in a gloo group.  ``torch-lm`` is one rank of
+the sharded LM (train steps on three meshes, a MoE step, decode) from the
+reference's weights in ``OUT_DIR/data.npz``; ``torch-pipeline`` one stage
+of ``pipeline_apply``, ``jax-pipeline`` the reference's on D host devices;
+``torch-dryrun`` the port's dry run on fake process groups.
+Each writes its outputs to an npz file that the tests compare.  Not collected by pytest (no ``test_`` prefix).
 """
 import os
 import sys
@@ -355,14 +363,250 @@ def run_torch_compress(out_dir, rank, world, init_file):
     tdist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# the sharded LM and the pipeline (A12.7)
+# ---------------------------------------------------------------------------
+
+LM_MESHES = ((2, 2), (4, 1), (1, 4))
+
+
+def _lm_case(arch):
+    from repro_torch import configs
+
+    return configs.reduced(configs.get_config(arch), remat=False, n_layers=2)
+
+
+def run_torch_lm(out_dir, rank, world, init_file):
+    """One rank of the sharded LM on a 4-rank gloo group: from the
+    reference's weights in ``data.npz``, 3 train steps of reduced Yi-9B on
+    every mesh of LM_MESHES; one step of reduced DeepSeek with ``experts`` on ``model``; a few
+    ``decode_step``s of Yi-9B with its cache placed by ``cache_specs``."""
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.constrain import activation_sharding
+    from repro_torch.lm import model
+    from repro_torch.train import step
+
+    torch.set_num_threads(1)  # four ranks share the host's cores
+    data = dict(np.load(os.path.join(out_dir, "data.npz")))
+    tdist.init_process_group("gloo", init_method=f"file://{init_file}",
+                             rank=rank, world_size=world)
+    out = {}
+
+    def load(arch):
+        cfg = _lm_case(arch)
+        state = {k[len(arch) + 3:]: torch.from_numpy(v) for k, v in data.items()
+                 if k.startswith(f"{arch}/p/")}
+        m = model.LM(cfg, device="cpu")
+        m.load_state_dict(state, strict=True)
+        return cfg, m
+
+    def batch(arch, i, mesh=None):
+        b = {k: torch.from_numpy(data[f"{arch}/b{i}/{k}"])
+             for k in ("tokens", "labels")}
+        if mesh is None:
+            return b
+        spec = (shd.batch_spec(mesh)[0], None)
+        return {k: distribute_tensor(v, mesh, shd.placements(
+            shd.enforce_divisibility(v.shape, spec, mesh), mesh))
+            for k, v in b.items()}
+
+    def full(m):
+        return {n: p.full_tensor().detach().numpy()
+                for n, p in m.named_parameters()}
+
+    oc = step.OptConfig(compute_dtype="float32", lr=1e-3, warmup=2,
+                        total_steps=10)
+    cases = [("yi_9b", shape, 3) for shape in LM_MESHES]
+    cases.append(("deepseek_v2_lite_16b", (2, 2), 1))
+    for arch, shape, n_steps in cases:
+        tag = f"{arch}/{shape[0]}x{shape[1]}"
+        cfg, m = load(arch)
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(shape),
+                          mesh_dim_names=("data", "model"))
+        specs = shd.shard_model(m, mesh)
+        opt = step.init_opt(m)
+        ts = step.make_train_step(cfg, oc)
+        for i in range(n_steps):
+            with activation_sharding(mesh):
+                got = ts(m, opt, batch(arch, i, mesh))
+            out[f"{tag}/loss{i}"] = np.float64(got["loss"])
+            out[f"{tag}/gnorm{i}"] = np.float64(got["grad_norm"])
+        for n, p in m.named_parameters():
+            out[f"{tag}/local/{n}"] = np.array(p.to_local().shape)
+            out[f"{tag}/spec/{n}"] = np.array(repr(specs[n]))
+            assert all(type(q) is type(r) for q, r in zip(
+                opt["m"][n].placements, p.placements))
+        params = full(m)
+        if rank == 0:
+            for n, a in params.items():
+                out[f"{tag}/p/{n}"] = a
+    # decode on (2, 2): the cache's batch over data
+    cfg, m = load("yi_9b")
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    shd.shard_model(m, mesh)
+    toks = torch.from_numpy(data["yi_9b/decode_tokens"])
+    cache = shd.shard_cache(model.init_cache(
+        cfg, toks.shape[0], toks.shape[1] + 1, device="cpu",
+        dtype=torch.float32), mesh)
+    for t in range(toks.shape[1]):
+        tok = distribute_tensor(toks[:, t:t + 1], mesh, shd.placements(
+            (shd.batch_spec(mesh)[0], None), mesh))
+        with activation_sharding(mesh):
+            logits, cache = model.decode_step(m, cache, tok)
+        out[f"decode/logits{t}"] = logits.full_tensor().numpy()
+    out["decode/cache_local"] = np.array(
+        cache["layers"][0]["k"].to_local().shape)
+    np.savez(os.path.join(out_dir, f"lm_rank{rank}.npz"), **out)
+    tdist.destroy_process_group()
+
+
+PIPE_CASES = ((4, 6), (4, 2))   # (S, M): M > S and M < S
+
+
+def pipe_inputs(s, m, mb=3, d=16):
+    """The reference test's stage weights and microbatches, from numpy."""
+    rng = np.random.default_rng(s * 10 + m)
+    w = (rng.normal(size=(s, d, d)) * 0.3).astype(np.float32)
+    x = rng.normal(size=(m, mb, d)).astype(np.float32)
+    return w, x
+
+
+def run_torch_pipeline(out_dir, rank, world, init_file):
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.dist.pipeline import pipeline_apply
+
+    torch.set_num_threads(1)
+    tdist.init_process_group("gloo", init_method=f"file://{init_file}",
+                             rank=rank, world_size=world)
+    out = {}
+    for s, m in PIPE_CASES:
+        w, x = pipe_inputs(s, m)
+        got = pipeline_apply(lambda p, h: torch.tanh(h @ p),
+                             torch.from_numpy(w[rank]), torch.from_numpy(x))
+        out[f"{s}x{m}"] = got.numpy()
+    np.savez(os.path.join(out_dir, f"pipe_rank{rank}.npz"), **out)
+    tdist.destroy_process_group()
+
+
+def run_jax_pipeline(out_path, d):
+    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={d}"
+    import jax
+    import jax.numpy as jnp
+
+    from repro.dist.pipeline import pipeline_apply
+
+    mesh = jax.make_mesh((d,), ("pipe",))
+    out = {}
+    for s, m in PIPE_CASES:
+        w, x = pipe_inputs(s, m)
+        got = pipeline_apply(lambda p, h: jnp.tanh(h @ p["w"]),
+                             {"w": jnp.asarray(w)}, jnp.asarray(x), mesh)
+        out[f"{s}x{m}"] = np.asarray(got)
+    np.savez(out_path, **out)
+
+
+def run_torch_dryrun(out_dir):
+    """The port's dry run on fake process groups (one process): the
+    reference test's cell, its argument bytes counted apart from the dry
+    run's own sum, the (1, 1) FLOP identity, a product split on both axes
+    of (16, 16), resume and the ``long_500k`` skip; a summary JSON."""
+    import json
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.lm import model
+    from repro_torch.train import step
+
+    summary = {}
+    path = os.path.join(out_dir, "dr.json")
+    summary["failures"] = dryrun.run(["olmo_1b"], ["train_4k", "long_500k"],
+                                     ["single"], path, reduced_for_test=True)
+    # the argument bytes apart: each parameter's and moment's local shard
+    # from its spec, and the batch's rows over data
+    cfg = reduced(get_config("olmo_1b"))
+    sizes = {"data": 16, "model": 16}
+    m = model.LM(cfg, device="meta")
+    specs = shd.param_specs(m, mesh=sizes)
+    per = 0
+    for n, p in m.named_parameters():
+        parts = int(np.prod([sizes[a] for e in specs[n]
+                             for a in shd._axes_tuple(e)] or [1]))
+        per += p.numel() // parts * 4
+    # parameters and two moments, the int32 step, tokens and labels
+    summary["argument_bytes_apart"] = (3 * per + 4
+                                       + 2 * (256 // 16) * 4096 * 4)
+    # resume: a second run re-runs no ok cell
+    real = dryrun.lower_cell
+
+    def refuse(*a, **k):
+        raise AssertionError("an ok cell was run again")
+
+    dryrun.lower_cell = refuse
+    try:
+        summary["resume_failures"] = dryrun.run(
+            ["olmo_1b"], ["train_4k"], ["single"], path,
+            reduced_for_test=True)
+    finally:
+        dryrun.lower_cell = real
+    # the (1, 1) identity on a small train cell
+    cell = ShapeCell("tiny", 64, 2, "train")
+    dryrun.fake_world(1)
+    mesh = DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
+                      mesh_dim_names=("data", "model"))
+    summary["flops_1x1"] = dryrun.lower_cell(
+        cfg, cell, mesh)["per_device"]["flops"]
+    plain = model.LM(cfg, device="meta")
+    batch = {k: torch.empty((2, 64), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    counts = dryrun.Counters()
+    with counts:
+        step.make_train_step(cfg, step.OptConfig())(
+            plain, step.init_opt(plain), batch)
+    summary["flops_plain"] = counts.flops
+    # a product split on both axes of (16, 16)
+    dryrun.fake_world(256)
+    mesh = DeviceMesh("cpu", torch.arange(256).reshape(16, 16),
+                      mesh_dim_names=("data", "model"))
+    a = distribute_tensor(torch.empty(4096, 512, device="meta"), mesh,
+                          [Shard(0), Shard(1)])
+    a = a.redistribute(mesh, [Shard(0), shd.placements((None,), mesh)[1]])
+    b = distribute_tensor(torch.empty(512, 2048, device="meta"), mesh,
+                          shd.placements((None, "model"), mesh))
+    counts = dryrun.Counters()
+    with counts:
+        a @ b
+    summary["matmul_flops_16x16"] = counts.flops
+    summary["matmul_flops_whole"] = 2 * 4096 * 512 * 2048
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f)
+
+
 if __name__ == "__main__":
     job = sys.argv[1]
-    if job in ("jax", "jax-compress"):
-        {"jax": run_jax, "jax-compress": run_jax_compress}[job](
-            sys.argv[2], int(sys.argv[3]))
+    if job == "torch-dryrun":
+        run_torch_dryrun(sys.argv[2])
+    elif job in ("jax", "jax-compress", "jax-pipeline"):
+        {"jax": run_jax, "jax-compress": run_jax_compress,
+         "jax-pipeline": run_jax_pipeline}[job](sys.argv[2], int(sys.argv[3]))
     else:
         fn = {"torch-graph": run_torch_graph,
               "torch-stream": run_torch_stream,
-              "torch-compress": run_torch_compress}[job]
+              "torch-compress": run_torch_compress,
+              "torch-lm": run_torch_lm,
+              "torch-pipeline": run_torch_pipeline}[job]
         fn(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
     print("OK")

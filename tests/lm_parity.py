@@ -13,10 +13,13 @@ import torch
 import repro.configs as ref_configs
 from repro.lm import model as ref_model
 from repro.lm.serve import generate as ref_generate
+from repro.train import step as ref_step_mod
 from repro_torch import configs
-from repro_torch.convert import lm_params_from_numpy, lm_state_from_numpy
+from repro_torch.convert import (lm_params_from_numpy, lm_state_from_numpy,
+                                 opt_state_from_numpy)
 from repro_torch.lm import model
 from repro_torch.lm.serve import generate
+from repro_torch.train import step as step_mod
 
 #: decode_step logits against the reference's (float32 sums in another
 #: order), as in the dense slice
@@ -186,3 +189,97 @@ def check_loss_and_grads(p: Pair, s=32, seed=6, *, rtol=1e-4, atol=1e-6):
         worst = max(worst, float((np.abs(g - want[name])
                                   / (atol + rtol * np.abs(want[name]))).max()))
     return worst
+
+
+def port_leaf_names(tree, cfg):
+    """(the port's state-dict name, the reference's leaf, stacked?) for
+    every leaf of a reference params-shaped ``tree``: a leaf of a stacked
+    period (``periods``) or of the stacked ``encoder`` stands for one port
+    tensor per period or encoder layer, its leading dim dropped; a tail
+    layer's and every other leaf stands for one."""
+    plen = len(cfg.layer_pattern())
+
+    def walk(sub, prefix):
+        if isinstance(sub, dict):
+            for k, v in sub.items():
+                yield from walk(v, f"{prefix}{k}.")
+        else:
+            yield prefix[:-1], sub
+
+    out = []
+    for key, sub in tree.items():
+        if key == "periods":
+            for slot, s in enumerate(sub):
+                for name, leaf in walk(s, ""):
+                    out += [(f"layers.{p * plen + slot}.{name}", leaf, True)
+                            for p in range(cfg.n_layers // plen)]
+        elif key == "tail":
+            base = (cfg.n_layers // plen) * plen
+            for i, s in enumerate(sub):
+                out += [(f"layers.{base + i}.{name}", leaf, False)
+                        for name, leaf in walk(s, "")]
+        elif key == "encoder":
+            for name, leaf in walk(sub, ""):
+                out += [(f"encoder.{i}.{name}", leaf, True)
+                        for i in range(cfg.n_enc_layers)]
+        else:
+            out += [(name, leaf, False) for name, leaf in walk(sub, f"{key}.")]
+    return out
+
+
+#: the train-step parity of the new families (A12.8): the dense configs'
+#: float32 band (``test_torch_train``), elements whose gradient is noise
+#: at Adam's eps excepted
+TRAIN_OC = dict(lr=1e-3, warmup=2, total_steps=10, compute_dtype="float32")
+TRAIN_NOISE_ELEMENTS, TRAIN_NOISE_ATOL = 4, 1e-3
+
+
+def _train_batch(cfg, i, b=4, s=32):
+    toks = tokens(cfg, s + 1, seed=40 + i, b=b)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out.update(extras(cfg, seed=40 + i, b=b))
+    return out
+
+
+def check_three_train_steps(arch):
+    """3 float32 steps of the port's ``make_train_step`` against the
+    reference's from its state after 2 steps (``test_torch_train_families``'
+    docstring has the bands)."""
+    rcfg = ref_configs.reduced(ref_configs.get_config(arch))
+    cfg = configs.reduced(configs.get_config(arch))
+    oc = ref_step_mod.OptConfig(**TRAIN_OC)
+    params = ref_model.init_params(rcfg, jax.random.PRNGKey(0))
+    opt = ref_step_mod.init_opt(params)
+    ts = jax.jit(ref_step_mod.make_train_step(rcfg, oc))
+    for i in range(2):  # moments nonzero and step > 0 before comparing
+        params, opt, _ = ts(params, opt, {k: jnp.asarray(v) for k, v in
+                                          _train_batch(cfg, i).items()})
+    m = lm_params_from_numpy(jax.tree.map(np.asarray, params), cfg,
+                             device="cpu")
+    start = {n: p.detach().clone() for n, p in m.named_parameters()}
+    popt = opt_state_from_numpy(jax.tree.map(np.asarray, opt), cfg,
+                                device="cpu")
+    pstep = step_mod.make_train_step(cfg, step_mod.OptConfig(**TRAIN_OC))
+    for i in range(2, 5):
+        b = _train_batch(cfg, i)
+        params, opt, want = ts(params, opt, {k: jnp.asarray(v)
+                                             for k, v in b.items()})
+        got = pstep(m, popt, {k: torch.from_numpy(v) for k, v in b.items()})
+        for key in ("loss", "grad_norm"):
+            w = float(want[key])
+            assert abs(float(got[key]) - w) <= 1e-5 * abs(w), (i, key)
+    assert int(popt["step"]) == int(opt["step"]) == 5
+    want_p = lm_state_from_numpy(jax.tree.map(np.asarray, params), cfg)
+    outside = 0
+    for n, p in m.named_parameters():
+        gap = p.detach().numpy() - want_p[n]
+        update = want_p[n] - start[n].numpy()
+        assert np.linalg.norm(gap) <= 1e-2 * np.linalg.norm(update) + 1e-7, n
+        outside += int((np.abs(gap) > 1e-6).sum())
+        assert np.abs(gap).max() <= TRAIN_NOISE_ATOL, (n, np.abs(gap).max())
+    assert outside <= TRAIN_NOISE_ELEMENTS, outside
+    for key in ("m", "v"):
+        want_m = lm_state_from_numpy(jax.tree.map(np.asarray, opt[key]), cfg)
+        for n, t in popt[key].items():
+            np.testing.assert_allclose(t.numpy(), want_m[n], rtol=0,
+                                       atol=1e-7, err_msg=f"{key}.{n}")

@@ -16,7 +16,8 @@ on ``ell`` and ``packed``, ``GraphServeService`` and the tuner's sweep on
 the card against the CPU, and the sweep raising when a kernel fails; the
 sharded engine on one NCCL rank (pull and push against the flat engine,
 K5 over every shard's tiles of a 4-shard layout, the sharded stream
-against the CPU's service, every map twice bitwise).
+against the CPU's service, every map twice bitwise); the sharded LM's
+train step on one NCCL rank against the unsharded step.
 
 Run on a machine with an NVIDIA card and ``nvcc``:
 
@@ -1350,3 +1351,57 @@ def test_sharded_stream_on_one_nccl_rank_matches_the_cpu(nccl_mesh, backend):
         np.testing.assert_array_equal(pr, sh.pagerank())
         np.testing.assert_allclose(pr, ref.pagerank(), rtol=0, atol=2e-7)
     assert any(h["compacted"] for h in sh.shard_history)
+
+
+def test_sharded_lm_step_on_one_nccl_rank_matches_the_unsharded_step(
+        cuda, tmp_path):
+    """The sharded LM (A12.7) on a one-rank NCCL ``DeviceMesh`` (1, 1):
+    reduced Yi-9B (remat on) through ``shard_model`` for 3 float32 steps
+    from the same weights as an unsharded copy on the card: loss and grad
+    norm within 1e-5 relative, every parameter within 1e-4 (bitwise equal
+    on one gloo rank on the CPU: at size 1 no axis splits a tensor, so the
+    same local ops run); K2 launches once per step (on the local shards)
+    and every parameter stays a DTensor.  One card holds every axis at size 1: this checks DTensor,
+    NCCL and K2 inside the step, not the exchange."""
+    import torch.distributed as tdist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.constrain import activation_sharding
+    from repro_torch.kernels.gather_embed import hot_gather
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import step
+
+    cfg, _, plain = _lm_pair(cuda, remat=True, n_kv_heads=2)
+    _, _, sharded = _lm_pair(cuda, remat=True, n_kv_heads=2)
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                             rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        shd.shard_model(sharded, mesh)
+        oc = step.OptConfig(lr=1e-3, warmup=2, total_steps=10,
+                            compute_dtype="float32")
+        ts = step.make_train_step(cfg, oc)
+        o1, o2 = step.init_opt(plain), step.init_opt(sharded)
+        gen = torch.Generator().manual_seed(2)
+        for i in range(3):
+            toks = torch.randint(0, cfg.vocab_size, (4, 65),
+                                 dtype=torch.int32, generator=gen).to(cuda)
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            want = ts(plain, o1, batch)
+            placed = {k: distribute_tensor(v, mesh, shd.placements(
+                (shd.batch_spec(mesh)[0], None), mesh))
+                for k, v in batch.items()}
+            before = hot_gather.launches
+            with activation_sharding(mesh):
+                got = ts(sharded, o2, placed)
+            assert hot_gather.launches - before == 1
+            for key in ("loss", "grad_norm"):
+                assert abs(float(got[key]) - float(want[key])) <= (
+                    1e-5 * abs(float(want[key]))), (i, key)
+        for (n, a), b in zip(sharded.named_parameters(), plain.parameters()):
+            assert isinstance(a, DTensor), n
+            diff = (a.full_tensor() - b).detach().abs().max()
+            assert float(diff) <= 1e-4, n
+    finally:
+        tdist.destroy_process_group()
