@@ -13,12 +13,15 @@ from typing import Optional
 
 import torch
 
+from ..obs import trace as obs_trace
+from ..obs.counters import app_job, host_read
 from .engine import (edge_map_pull, edge_map_push, out_edge_sum,
                      switch_by_density)
 
 __all__ = ["bc"]
 
 
+@app_job("bc")
 def bc(ga, root: int, *, max_iters: int = 0,
        direction_optimizing: bool = True,
        density_threshold: Optional[float] = None):
@@ -44,34 +47,37 @@ def bc(ga, root: int, *, max_iters: int = 0,
         return edge_map_push(ga, contrib, reduce="sum", src_frontier=frontier)
 
     levels = 0
-    while levels < max_iters and bool(torch.any(frontier)):
-        # candidate sigma from in-neighbors on the frontier
-        contrib = torch.where(frontier, sigma, 0.0)
-        if direction_optimizing:
-            sig_new = switch_by_density(ga, frontier, pull_step, push_step,
-                                        (contrib, frontier),
-                                        threshold=density_threshold)
-        else:
-            sig_new = pull_step((contrib, frontier))
-        fresh = (sig_new > 0.0) & (dist < 0)
-        dist = torch.where(fresh, levels + 1, dist)
-        sigma = torch.where(fresh, sig_new, sigma)
-        frontier = fresh
-        levels += 1
+    while levels < max_iters and bool(host_read(torch.any(frontier))):
+        with obs_trace.span("apps.bc.iter"):
+            # candidate sigma from in-neighbors on the frontier
+            contrib = torch.where(frontier, sigma, 0.0)
+            if direction_optimizing:
+                sig_new = switch_by_density(ga, frontier, pull_step,
+                                            push_step, (contrib, frontier),
+                                            threshold=density_threshold)
+            else:
+                sig_new = pull_step((contrib, frontier))
+            fresh = (sig_new > 0.0) & (dist < 0)
+            dist = torch.where(fresh, levels + 1, dist)
+            sigma = torch.where(fresh, sig_new, sigma)
+            frontier = fresh
+            levels += 1
 
     # ---- backward dependency sweep ----
     # delta[v] = sum over out-children c (dist[c] == dist[v]+1) of
     #            sigma[v]/sigma[c] * (1 + delta[c])
     sigma_safe = sigma.clamp(min=1e-30)
     delta = torch.zeros((v,), dtype=torch.float32, device=dev)
-    for level in range(levels):
-        def edge_val(src, child):
-            ok = dist[child] == dist[src] + 1
-            return torch.where(ok, (1.0 + delta[child]) / sigma_safe[child],
-                               0.0)
+    with obs_trace.span("apps.bc.backward"):
+        for level in range(levels):
+            def edge_val(src, child):
+                ok = dist[child] == dist[src] + 1
+                return torch.where(ok,
+                                   (1.0 + delta[child]) / sigma_safe[child],
+                                   0.0)
 
-        contrib = sigma * out_edge_sum(ga, edge_val)
-        delta = torch.where(dist == (levels - 1 - level), contrib, delta)
+            contrib = sigma * out_edge_sum(ga, edge_val)
+            delta = torch.where(dist == (levels - 1 - level), contrib, delta)
 
     centrality = torch.where(dist >= 0, delta, 0.0)
     centrality[root] = 0.0

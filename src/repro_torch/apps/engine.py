@@ -43,6 +43,7 @@ import torch
 from ..device import resolve_device
 from ..graph import csr
 from ..kernels.edge_map.edge_map import reduce_identity
+from ..obs import counters as obs_counters
 from ..obs import trace as obs_trace
 
 __all__ = [
@@ -99,36 +100,45 @@ class GraphArrays(NamedTuple):
         return self.in_deg.device
 
 
-def _graph_arrays(g: csr.Graph, device: torch.device) -> GraphArrays:
-    """Host-side flattening of both CSR directions onto ``device``.
-
-    Unweighted graphs share ONE ones plane between ``in_w`` and ``out_w``."""
+def _host_arrays(g: csr.Graph) -> Dict[str, Optional[np.ndarray]]:
+    """Both CSR directions flattened on the host, in ``GraphArrays``' field
+    dtypes.  Unweighted graphs get no weight arrays (``None``): the upload
+    makes ONE ones plane that ``in_w`` and ``out_w`` share."""
     v = g.num_vertices
     in_csr, out_csr = g.in_csr, g.out_csr
     out_deg = out_csr.degrees()
 
-    def t(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+    def h(a, dtype):
+        return np.ascontiguousarray(a, dtype=dtype)
 
-    if in_csr.weights is None and out_csr.weights is None:
-        in_w = out_w = torch.ones(in_csr.num_edges, dtype=torch.float32,
-                                  device=device)
-    else:
-        in_w = t(in_csr.weights if in_csr.weights is not None
+    in_w = out_w = None
+    if in_csr.weights is not None or out_csr.weights is not None:
+        in_w = h(in_csr.weights if in_csr.weights is not None
                  else np.ones(in_csr.num_edges), np.float32)
-        out_w = t(out_csr.weights if out_csr.weights is not None
+        out_w = h(out_csr.weights if out_csr.weights is not None
                   else np.ones(out_csr.num_edges), np.float32)
-    return GraphArrays(
-        in_src=t(in_csr.indices, np.int64),
+    return dict(
+        in_src=h(in_csr.indices, np.int64),
         in_w=in_w,
-        in_ptr=t(in_csr.indptr, np.int64),
-        out_dst=t(out_csr.indices, np.int64),
-        out_src=t(np.repeat(np.arange(v, dtype=np.int64), out_deg), np.int64),
+        in_ptr=h(in_csr.indptr, np.int64),
+        out_dst=h(out_csr.indices, np.int64),
+        out_src=np.repeat(np.arange(v, dtype=np.int64), out_deg),
         out_w=out_w,
-        out_ptr=t(out_csr.indptr, np.int64),
-        in_deg=t(in_csr.degrees(), np.int32),
-        out_deg=t(out_deg, np.int32),
+        out_ptr=h(out_csr.indptr, np.int64),
+        in_deg=h(in_csr.degrees(), np.int32),
+        out_deg=h(out_deg, np.int32),
     )
+
+
+def _upload_arrays(host: Dict[str, Optional[np.ndarray]],
+                   device: torch.device) -> GraphArrays:
+    """``_host_arrays``' output on ``device``."""
+    out = {k: None if a is None else torch.from_numpy(a).to(device)
+           for k, a in host.items()}
+    if out["in_w"] is None:
+        out["in_w"] = out["out_w"] = torch.ones(
+            host["in_src"].shape[0], dtype=torch.float32, device=device)
+    return GraphArrays(**out)
 
 
 # ---------------------------------------------------------------------------
@@ -319,38 +329,65 @@ class EllBackend(_Delegate, FusedEdgeMaps):
 # Backend registry — THE single table behind every backend-name switch
 # ---------------------------------------------------------------------------
 
+def _phased_build(pack: Callable[[], object],
+                  upload: Callable[[object], object]):
+    """``upload(pack())``, published as the build's two phases
+    (``obs.counters.record_phases``): ``engine.build.pack`` (host packing)
+    and ``engine.build.upload`` (putting it on the device)."""
+    t0 = obs_trace.now()
+    host = pack()
+    t1 = obs_trace.now()
+    built = upload(host)
+    obs_counters.record_phases("engine.build", ("pack", "upload"),
+                               (t0, t1, obs_trace.now()))
+    return built
+
+
 def _build_arrays(g: csr.Graph, *, device: torch.device):
-    return _graph_arrays(g, device)
+    return _phased_build(lambda: _host_arrays(g),
+                         lambda host: _upload_arrays(host, device))
 
 
 def _build_flat(g: csr.Graph, *, device: torch.device):
-    return FlatBackend(_graph_arrays(g, device))
+    return FlatBackend(_build_arrays(g, device=device))
 
 
 def _build_ell(g: csr.Graph, *, device: torch.device, row_tile: int = 64,
                width_tile: int = 128):
     from ..core.reorder import dbg_spec
-    from ..kernels.edge_map.ops import ell_tiles
+    from ..kernels.edge_map.ops import ell_tiles_host, upload_tiles
 
-    in_deg = g.in_csr.degrees()
-    spec = dbg_spec(max(1.0, float(in_deg.mean()) if in_deg.size else 1.0))
-    tiles = ell_tiles(g.in_csr, spec.boundaries, row_tile=row_tile,
-                      width_tile=width_tile, device=device)
-    return EllBackend(_graph_arrays(g, device), tiles, row_tile=row_tile,
-                      width_tile=width_tile)
+    def pack():
+        in_deg = g.in_csr.degrees()
+        spec = dbg_spec(max(1.0, float(in_deg.mean()) if in_deg.size
+                            else 1.0))
+        return (ell_tiles_host(g.in_csr, spec.boundaries, row_tile=row_tile,
+                               width_tile=width_tile), _host_arrays(g))
+
+    def upload(host):
+        tiles, arrays = host
+        return EllBackend(_upload_arrays(arrays, device),
+                          upload_tiles(tiles, device), row_tile=row_tile,
+                          width_tile=width_tile)
+
+    return _phased_build(pack, upload)
 
 
 def _build_packed(g: csr.Graph, *, device: torch.device, row_tile: int = 64,
                   width_tile: int = 128, slot_align: int = 16,
                   hot_groups: int = 0):
+    """Its ``pack`` phase is the host layout (``pack_graph``); its
+    ``upload`` phase is ``packed_backend``, which puts the layout on the
+    device and decodes the cold tail into ELL tiles on the way."""
     from ..pack.engine import packed_backend
     from ..pack.layout import pack_graph
 
-    pg = pack_graph(g, slot_align=slot_align,
-                    hot_groups=hot_groups if hot_groups > 0 else None,
-                    rows_per_block=row_tile)
-    return packed_backend(pg, row_tile=row_tile, width_tile=width_tile,
-                          device=device)
+    return _phased_build(
+        lambda: pack_graph(g, slot_align=slot_align,
+                           hot_groups=hot_groups if hot_groups > 0 else None,
+                           rows_per_block=row_tile),
+        lambda pg: packed_backend(pg, row_tile=row_tile,
+                                  width_tile=width_tile, device=device))
 
 
 def _build_auto(g: csr.Graph, *, device: torch.device,
@@ -464,7 +501,10 @@ def to_arrays(
     Knobs are validated against ``BACKEND_KNOBS``: unknown names raise;
     knobs the chosen backend does not consume warn and are dropped, or
     raise with ``strict=True``.  The build runs inside an
-    ``engine.build_backend`` span (a no-op while tracing is off).
+    ``engine.build_backend`` span (a no-op while tracing is off); the
+    backend's builder times its host packing and its upload
+    (``engine.build.pack`` / ``engine.build.upload`` spans, and their
+    seconds in the registry under ``engine.build.*``).
     """
     dev = resolve_device(device)
     accepted, ignored = validate_knobs(backend, knobs, strict=strict)
@@ -513,18 +553,20 @@ def edge_map_pull(ga, prop, **kw):
     """
     if _EDGE_MAP_HOOK is not None:
         _EDGE_MAP_HOOK.on_pass(ga, "pull", prop, kw)
-    if isinstance(ga, GraphArrays):
-        return _pull_flat(ga, prop, **kw)
-    return ga.pull(prop, **kw)
+    with obs_trace.span("engine.edge_map_pull"):
+        if isinstance(ga, GraphArrays):
+            return _pull_flat(ga, prop, **kw)
+        return ga.pull(prop, **kw)
 
 
 def edge_map_push(ga, prop, **kw):
     """dst <- REDUCE over pushes from active sources, seeded by ``init``."""
     if _EDGE_MAP_HOOK is not None:
         _EDGE_MAP_HOOK.on_pass(ga, "push", prop, kw)
-    if isinstance(ga, GraphArrays):
-        return _push_flat(ga, prop, **kw)
-    return ga.push(prop, **kw)
+    with obs_trace.span("engine.edge_map_push"):
+        if isinstance(ga, GraphArrays):
+            return _push_flat(ga, prop, **kw)
+        return ga.push(prop, **kw)
 
 
 def out_edge_sum(ga, edge_val) -> torch.Tensor:
@@ -533,14 +575,17 @@ def out_edge_sum(ga, edge_val) -> torch.Tensor:
     BC's backward dependency gather: a pull in the OUT direction whose edge
     value depends on both endpoints.  Backends with segmented (non-edge-
     parallel) storage provide their own ``out_edge_sum``; everything backed
-    by flat arrays takes the sorted-segment sum here.
+    by flat arrays takes the sorted-segment sum here.  Every call walks all
+    edges: it adds them to ``obs.counters.OUT_EDGE_SUM_EDGES``.
     """
     if _EDGE_MAP_HOOK is not None:
         _EDGE_MAP_HOOK.on_pass(ga, "out_sum", None, {})
-    fn = getattr(ga, "out_edge_sum", None)
-    if fn is not None:
-        return fn(edge_val)
-    return _segment(edge_val(ga.out_src, ga.out_dst), ga.out_ptr, "sum")
+    obs_counters.count_swept_edges(ga)
+    with obs_trace.span("engine.out_edge_sum"):
+        fn = getattr(ga, "out_edge_sum", None)
+        if fn is not None:
+            return fn(edge_val)
+        return _segment(edge_val(ga.out_src, ga.out_dst), ga.out_ptr, "sum")
 
 
 def vertex_map(frontier: torch.Tensor, fn) -> torch.Tensor:
@@ -571,9 +616,11 @@ def switch_by_density(ga, frontier, pull_step, push_step, operand,
     """Dense frontier → ``pull_step(operand)``, sparse → ``push_step``.
 
     The comparison runs in float32 on the device (as the reference's
-    ``lax.cond`` does); reading it is one host sync per call."""
+    ``lax.cond`` does); reading it is one host sync per call
+    (``obs.counters.host_read``)."""
     if threshold is None:
         threshold = DENSITY_THRESHOLD
-    if bool(frontier_density(ga, frontier) > threshold):
+    if bool(obs_counters.host_read(frontier_density(ga, frontier)
+                                   > threshold)):
         return pull_step(operand)
     return push_step(operand)

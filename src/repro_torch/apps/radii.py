@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..obs import trace as obs_trace
+from ..obs.counters import app_job, host_read
 from .engine import edge_map_pull
 
 __all__ = ["radii", "radii_sources"]
@@ -24,6 +26,7 @@ def radii_sources(num_vertices: int, num_samples: int = 8, *,
     return torch.randperm(num_vertices, generator=generator)[:num_samples]
 
 
+@app_job("radii")
 def radii(ga, sources: torch.Tensor, *, max_iters: int = 0):
     """Returns (radius_estimate, iterations) from the given source ids."""
     v = ga.num_vertices
@@ -38,10 +41,11 @@ def radii(ga, sources: torch.Tensor, *, max_iters: int = 0):
 
     it, changed = 0, True
     while it < max_iters and changed:
-        pulled = edge_map_pull(ga, reach, reduce="or")
-        nxt = torch.maximum(reach, pulled)
-        grew = torch.any(nxt != reach, dim=1)
-        rad = torch.where(grew, it + 1, rad)
-        changed = bool(torch.any(grew))
-        reach, it = nxt, it + 1
+        with obs_trace.span("apps.radii.iter"):
+            pulled = edge_map_pull(ga, reach, reduce="or")
+            nxt = torch.maximum(reach, pulled)
+            grew = torch.any(nxt != reach, dim=1)
+            rad = torch.where(grew, it + 1, rad)
+            changed = bool(host_read(torch.any(grew)))
+            reach, it = nxt, it + 1
     return rad, it

@@ -13,11 +13,14 @@ from typing import Optional
 
 import torch
 
+from ..obs import trace as obs_trace
+from ..obs.counters import app_job, host_read
 from .engine import edge_map_pull, edge_map_push, switch_by_density
 
 __all__ = ["sssp"]
 
 
+@app_job("sssp")
 def sssp(ga, root: int, *, max_iters: int = 0,
          direction_optimizing: bool = True,
          density_threshold: Optional[float] = None):
@@ -44,13 +47,14 @@ def sssp(ga, root: int, *, max_iters: int = 0,
         return torch.minimum(dist, pulled)
 
     it = 0
-    while it < max_iters and bool(torch.any(frontier)):
-        if direction_optimizing:
-            cand = switch_by_density(ga, frontier, pull_step, push_step,
-                                     (dist, frontier),
-                                     threshold=density_threshold)
-        else:
-            cand = push_step((dist, frontier))
-        frontier = cand < dist
-        dist, it = cand, it + 1
+    while it < max_iters and bool(host_read(torch.any(frontier))):
+        with obs_trace.span("apps.sssp.iter"):
+            if direction_optimizing:
+                cand = switch_by_density(ga, frontier, pull_step, push_step,
+                                         (dist, frontier),
+                                         threshold=density_threshold)
+            else:
+                cand = push_step((dist, frontier))
+            frontier = cand < dist
+            dist, it = cand, it + 1
     return dist, it

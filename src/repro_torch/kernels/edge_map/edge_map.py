@@ -139,7 +139,8 @@ def ell_edge_map(
     degree.  A caller that passes none gets that list built here from
     ``deg`` (a copy to the host: set-up, not per-call work, so callers on a
     hot path pass the tiles' own).  Any list that covers each row's
-    ``[0, deg)`` in order computes the same function.
+    ``[0, deg)`` in order computes the same function.  That copy is a
+    counted host read (``obs.counters.host_read``).
 
     CUDA tensors launch the K5 kernel (and count its launches in
     ``ell_edge_map.launches``: one, or two for a wide tile); CPU tensors
@@ -193,7 +194,9 @@ def ell_edge_map(
     partial = None
     if group == 256:
         if segments is None:
-            segments = class_segments(deg.cpu().numpy(), width, dev)
+            from ...obs.counters import host_read
+
+            segments = class_segments(host_read(deg), width, dev)
         require(segments, "segments", torch.int32, (segments.shape[0], 3), dev)
         partial = torch.empty((segments.shape[0], k), dtype=torch.float32,
                               device=dev)

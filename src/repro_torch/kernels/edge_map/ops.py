@@ -41,6 +41,8 @@ __all__ = [
     "EllTileGroup",
     "ShardedTileGroup",
     "ell_tiles",
+    "ell_tiles_host",
+    "upload_tiles",
     "ell_tiles_sharded",
     "coo_tiles",
     "coo_tiles_sharded",
@@ -176,10 +178,37 @@ def ell_tiles(
     rows are skipped: they take the reduction identity in the combine, and
     a set-combine must not clobber a row another tile set owns.
     ``alive_edges`` is an optional per-edge bool in storage order.
+
+    ``ell_tiles_host`` (the host packing) then ``upload_tiles``.
     """
+    device = resolve_device(device)
+    return upload_tiles(ell_tiles_host(adj, boundaries, row_tile=row_tile,
+                                       width_tile=width_tile,
+                                       alive_edges=alive_edges), device)
+
+
+def upload_tiles(tiles: Sequence[EllTileGroup],
+                 device: torch.device) -> Tuple[EllTileGroup, ...]:
+    """Host tiles (``ell_tiles_host``) on ``device``."""
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(device)
+
+    return tuple(EllTileGroup(*(t(a) for a in g)) for g in tiles)
+
+
+def ell_tiles_host(
+    adj: csr_mod.CSR,
+    boundaries: Sequence[int],
+    *,
+    row_tile: int = 64,
+    width_tile: int = 128,
+    alive_edges: Optional[np.ndarray] = None,
+) -> Tuple[EllTileGroup, ...]:
+    """``ell_tiles``' host packing: the same tiles, every plane a numpy
+    array (``rows`` int64, the segment list built for a class wider than
+    1,024 lanes)."""
     from ...core.reorder import _assign_groups
 
-    device = resolve_device(device)
     deg_all = adj.degrees()
     grp = _assign_groups(deg_all, boundaries)
     by_width = {}
@@ -200,13 +229,9 @@ def ell_tiles(
         deg_arr = np.zeros(r_pad, np.int32)
         deg_arr[: rows.size] = degs
         out.append(EllTileGroup(
-            rows=torch.from_numpy(rows.astype(np.int64)).to(device),
-            idx=torch.from_numpy(idx).to(device),
-            deg=torch.from_numpy(deg_arr).to(device),
-            w=None if w is None else torch.from_numpy(w).to(device),
-            alive=None if alive is None else torch.from_numpy(alive).to(device),
-            segments=class_segments(deg_arr, w_pad, device),
-        ))
+            rows=rows.astype(np.int64), idx=idx, deg=deg_arr, w=w,
+            alive=alive, segments=None if lanes_per_row(w_pad) < 256
+            else row_segments(deg_arr)))
     return tuple(out)
 
 

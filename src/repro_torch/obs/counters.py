@@ -36,6 +36,21 @@ bitwise identical to uninstrumented ones, and an uninstalled hook costs one
 owner: the serving plane calls it after every query batch, the sharded
 engine after every PageRank and SSSP solve.
 
+Always on, whatever the hook and the tracer, the graph path's own counts
+(read by the benchmark's per-layer metrics):
+
+  * every device-to-host read of the app loops goes through
+    :func:`host_read`, which adds one to the plain integer ``HOST_READS``;
+    every ``out_edge_sum`` adds the edges it walks to
+    ``OUT_EDGE_SUM_EDGES`` (:func:`count_swept_edges`);
+  * :func:`app_job` wraps each app's entry point: a span ``apps.<app>``,
+    and at its return ``apps.jobs.<app>``, ``apps.host_reads.<app>`` and
+    ``engine.out_edge_sum.edges`` in the registry, one addition each per
+    call;
+  * :func:`record_phases` publishes a set-up call's phases, timed by the
+    caller, as spans and as seconds in the registry (``reorder.*``,
+    ``engine.build.*``).
+
 Sharded passes (``repro_torch.dist``) count under ``sharded_flat`` /
 ``sharded_ell``, their edges from the layout's host degree vectors (base +
 delta − tombstones) and their bytes through
@@ -46,8 +61,9 @@ replicated on every rank's host.
 """
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +78,10 @@ __all__ = [
     "backend_name",
     "install",
     "uninstall",
+    "host_read",
+    "count_swept_edges",
+    "app_job",
+    "record_phases",
 ]
 
 
@@ -270,6 +290,73 @@ class EdgeMapCounters:
             hist = self.registry.histogram("edge_map.frontier_density")
             total = max(1, int(out_deg.sum(dtype=torch.int64)))
             hist.observe(int(num) / (total * k))
+
+
+# ---------------------------------------------------------------------------
+# the graph path's always-on counts
+# ---------------------------------------------------------------------------
+
+#: device-to-host reads through :func:`host_read` since the process started
+HOST_READS = 0
+#: edges walked by ``apps.engine.out_edge_sum`` since the process started
+OUT_EDGE_SUM_EDGES = 0
+
+
+def host_read(t: torch.Tensor):
+    """``t`` on the host, counted in ``HOST_READS``, inside an
+    ``apps.host_read`` span: a Python scalar for a 0-d tensor, else a numpy
+    array.  On a card every read waits for the device."""
+    global HOST_READS
+    HOST_READS += 1
+    with obs_trace.span("apps.host_read"):
+        return t.item() if t.dim() == 0 else t.cpu().numpy()
+
+
+def count_swept_edges(ga: Any) -> None:
+    """Add the edges one ``out_edge_sum`` over ``ga`` walks (all of them)."""
+    global OUT_EDGE_SUM_EDGES
+    OUT_EDGE_SUM_EDGES += _num_edges(ga)
+
+
+def app_job(app: str):
+    """Decorator of an app's entry point: each call runs in an
+    ``apps.<app>`` span and, at its return, adds 1 to ``apps.jobs.<app>``,
+    the call's host reads to ``apps.host_reads.<app>`` and the edges its
+    ``out_edge_sum`` calls walked (if any) to ``engine.out_edge_sum.edges``
+    in the registry."""
+    span, jobs, reads = f"apps.{app}", f"apps.jobs.{app}", \
+        f"apps.host_reads.{app}"
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            reads0, edges0 = HOST_READS, OUT_EDGE_SUM_EDGES
+            with obs_trace.span(span):
+                out = fn(*args, **kw)
+            reg = get_registry()  # looked up per call: reset_registry swaps it
+            reg.counter(jobs).inc()
+            reg.counter(reads).inc(HOST_READS - reads0)
+            if OUT_EDGE_SUM_EDGES != edges0:
+                reg.counter("engine.out_edge_sum.edges").inc(
+                    OUT_EDGE_SUM_EDGES - edges0)
+            return out
+
+        return wrapper
+
+    return deco
+
+
+def record_phases(prefix: str, names: Sequence[str],
+                  marks: Sequence[int]) -> None:
+    """Publish one set-up call's phases, timed by ``len(names) + 1``
+    readings of ``obs.trace.now()`` (phase ``i`` runs from ``marks[i]`` to
+    ``marks[i + 1]``): a span ``<prefix>.<name>`` each (tracer on), and in
+    the registry ``<prefix>.<name>_s`` seconds each and ``<prefix>.calls``."""
+    reg = get_registry()
+    reg.counter(f"{prefix}.calls").inc()
+    for name, start, end in zip(names, marks, marks[1:]):
+        obs_trace.complete(f"{prefix}.{name}", start, end)
+        reg.counter(f"{prefix}.{name}_s").inc((end - start) / 1e9)
 
 
 # ---------------------------------------------------------------------------

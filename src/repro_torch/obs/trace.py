@@ -14,6 +14,14 @@ span stack tracks depth; Chrome infers the tree from timestamp containment
 within a ``tid``), so concurrent recorders never interleave each other's
 stacks.
 
+Each tracer anchors its epoch on ``time.time_ns``, the clock of
+``torch.profiler``'s events: ``Tracer.spans_unix_ns`` gives every complete
+event as ``(start, end, name)`` there, so a profiled window's device
+events line up with the spans that launched them.  A phase the caller
+times anyway (a set-up step whose seconds it also publishes) takes two
+readings of :func:`now` and records them with :func:`complete`: one timing
+path for the span and the number.
+
 Tracing is OFF by default and costs one ``is``-check per call site when off:
 the module-level :func:`span` / :func:`instant` / :func:`counter` helpers
 dispatch to a process-global tracer that defaults to the :data:`NULL_TRACER`
@@ -48,7 +56,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "Tracer",
@@ -62,6 +70,8 @@ __all__ = [
     "set_flight_sink",
     "get_flight_sink",
     "span",
+    "now",
+    "complete",
     "instant",
     "counter",
     "flow_start",
@@ -176,7 +186,11 @@ class Tracer:
         self._lock = threading.Lock()
         self._local = threading.local()
         self.pid = os.getpid()
+        before = time.time_ns()
         self.epoch = clock()  # ts 0 == tracer construction
+        #: ``time.time_ns()`` at ``epoch`` (the mean of two readings around
+        #: it): where ts 0 lies on the profiler's clock
+        self.epoch_unix_ns = (before + time.time_ns()) // 2
         self.events: List[Dict[str, Any]] = []
 
     # -- internals -----------------------------------------------------------
@@ -210,6 +224,22 @@ class Tracer:
     def span(self, name: str, cat: str = "", **args) -> _Span:
         """Open a span: ``with tracer.span("serve.batch", kind="sssp"): ...``"""
         return _Span(self, name, cat, args or None)
+
+    def now(self) -> int:
+        """One reading of this tracer's clock (what :meth:`complete` takes)."""
+        return self._clock()
+
+    def complete(self, name: str, start: int, end: int, cat: str = "",
+                 **args) -> None:
+        """Record a span already timed by two readings of this tracer's
+        clock (``now()`` before and after): the complete event ``span``
+        would have made."""
+        ev = {"ph": "X", "name": name, "cat": cat or "repro", "pid": self.pid,
+              "tid": threading.get_ident(), "ts": (start - self.epoch) / 1e3,
+              "dur": (end - start) / 1e3}
+        if args:
+            ev["args"] = _jsonable(args)
+        self._emit(ev)
 
     def instant(self, name: str, cat: str = "", **args) -> None:
         """A zero-duration marker event (``ph == "i"``)."""
@@ -264,6 +294,19 @@ class Tracer:
         """Open-span depth of the CALLING thread (0 at top level)."""
         return len(self._stack())
 
+    # -- the profiler's clock -----------------------------------------------
+    def spans_unix_ns(self) -> List[Tuple[int, int, str]]:
+        """Every complete event as ``(start, end, name)`` on ``time.time_ns``,
+        the clock of ``torch.profiler``'s events, in the order recorded.
+        Holds for a clock that counts real nanoseconds (the default,
+        ``time.perf_counter_ns``)."""
+        with self._lock:
+            events = [e for e in self.events if e["ph"] == "X"]
+        at = self.epoch_unix_ns
+        return [(at + round(e["ts"] * 1e3),
+                 at + round((e["ts"] + e["dur"]) * 1e3), e["name"])
+                for e in events]
+
     # -- export --------------------------------------------------------------
     def export(self) -> Dict[str, Any]:
         with self._lock:
@@ -286,6 +329,13 @@ class NullTracer:
 
     def span(self, name: str, cat: str = "", **args) -> _NullSpan:
         return _NULL_SPAN
+
+    def now(self) -> int:
+        return time.perf_counter_ns()
+
+    def complete(self, name: str, start: int, end: int, cat: str = "",
+                 **args) -> None:
+        return None
 
     def instant(self, name: str, cat: str = "", **args) -> None:
         return None
@@ -395,6 +445,18 @@ def get_flight_sink() -> Any:
 def span(name: str, cat: str = "", **args):
     """Module-level span against the global tracer (no-op when disabled)."""
     return _ACTIVE.span(name, cat, **args)
+
+
+def now() -> int:
+    """One reading of the active recorder's clock (``time.perf_counter_ns``
+    when nothing records): what :func:`complete` takes."""
+    return _ACTIVE.now()
+
+
+def complete(name: str, start: int, end: int, cat: str = "", **args) -> None:
+    """Record a span timed by two readings of :func:`now` (no-op when
+    disabled)."""
+    _ACTIVE.complete(name, start, end, cat, **args)
 
 
 def instant(name: str, cat: str = "", **args) -> None:

@@ -709,6 +709,13 @@ def _strip(events):
             for e in events]
 
 
+#: prefixes of the spans the port's graph path records and the reference
+#: has no counterpart of (set-up phases, app calls and iterations, the
+#: engine's dispatch, host reads; ``tests/test_torch_obs_graph.py``)
+GRAPH_PATH = ("reorder.", "engine.build.", "engine.edge_map_",
+              "engine.out_edge_sum", "apps.")
+
+
 @pytest.mark.parametrize("incremental", [False, True])
 def test_service_trace_events_match_reference(small_pair, incremental):
     """submit/dispatch/result flows and async spans, the serve.batch /
@@ -738,7 +745,8 @@ def test_service_trace_events_match_reference(small_pair, incremental):
         snap = svc.store.acquire()
         snap.graph  # the lazy materialization, when incremental
         svc.store.release(snap)
-    got = _strip(ptr.events)
+    got = _strip([e for e in ptr.events
+                  if not e["name"].startswith(GRAPH_PATH)])
     names = {e["name"] for e in got}
     assert {"serve.query", "serve.batch", "serve.ingest", "serve.publish",
             "engine.solve.sssp", "engine.solve.pagerank",
