@@ -850,23 +850,25 @@ def time_pull(flat, ell, reps, narrow_builds):
                             row_tile=t.idx.shape[0], width_tile=t.idx.shape[1])
 
     def kernels():
-        return [call(t, t.segments) for t in tiles]
+        return fused_edge_map(tiles, x, v, reduce="sum")
 
     def plain():
         return [ell_edge_map_ref(x, t.idx, t.deg) for t in tiles]
 
     n0 = _ell_launches()
-    got = fused_edge_map(tiles, x, v, reduce="sum")
+    got = kernels()
     launches_per_call = _ell_launches() - n0
+    if launches_per_call != _k5_launches(tiles):
+        raise AssertionError(f"timed pull: {launches_per_call} K5 launches, "
+                             f"the tiles call for {_k5_launches(tiles)}")
     want = flat.pull(x, reduce="sum")
     err = _assert_close(got, want, "sum", "timed pull vs flat")
-    for a, b in zip(kernels(), plain()):
-        err = max(err, _assert_close(a, b, "sum", "timed pull vs plain"))
+    for t, b in zip(tiles, plain()):
+        err = max(err, _assert_close(call(t, t.segments), b, "sum",
+                                     "timed pull vs plain"))
 
     ms = _events_ms(kernels, reps)
     device_ms = _events_ms(kernels, reps, True)
-    fused_ms = _events_ms(lambda: fused_edge_map(tiles, x, v, reduce="sum"),
-                          reps)
     plain_ms = _events_ms(plain, reps)
     per_class = []
     for t in tiles:
@@ -926,7 +928,6 @@ def time_pull(flat, ell, reps, narrow_builds):
     padded = fused_edge_map_bytes(tiles, v)
     return dict(
         launches_per_call=launches_per_call, ms=ms, device_ms=device_ms,
-        fused_ms=fused_ms,
         plain_ms=plain_ms, library_ms=library_ms,
         library_device_ms=library_device_ms,
         bound_ms=max(bound_bytes_ms, bound_ops_ms),
@@ -1527,13 +1528,34 @@ def _mapped_back(app, out, m):
     return y[m], it
 
 
-def _k5_launches_per_pass(tiles):
-    """K5 launches of one ``fused_edge_map`` pass over ``tiles``: two for a
-    tile wider than 1,024 lanes (pieces, then the fold), else one."""
+K5_BATCH_ABOVE = 4        # csrc/edge_map.cu's batch threshold and the
+K5_LAUNCH_CLASSES = 8     # narrow classes one grouped launch takes at most
+
+
+def _k5_launches(tiles, extra=()):
+    """K5's launches of one ``fused_edge_map`` on the card, from the tiles
+    alone: two for each class wider than 1,024 lanes (pieces, then the
+    fold); one for every ``K5_LAUNCH_CLASSES`` narrow classes of one kind
+    (id width, weight and alive planes, batching); each extra class its
+    own."""
+    from collections import Counter
+
     from repro_torch.kernels._wrap import lanes_per_row
 
-    return sum(2 if lanes_per_row(t.idx.shape[1]) == 256 else 1
-               for t in tiles)
+    kinds, n = Counter(), 0
+    for t in tiles:
+        width = t.idx.shape[1]
+        group = lanes_per_row(width)
+        if not t.num_rows:
+            continue
+        if group == 256:
+            n += 2
+        else:
+            kinds[t.idx.element_size(), t.w is not None, t.alive is not None,
+                  width > K5_BATCH_ABOVE * group] += 1
+    n += sum(-(-c // K5_LAUNCH_CLASSES) for c in kinds.values())
+    return n + sum(2 if lanes_per_row(t.idx.shape[1]) == 256 else 1
+                   for t in extra)
 
 
 def _cache_model(graph):
@@ -1697,7 +1719,7 @@ def paper_eval(g, g_dbg, gw_dbg, res, ells, device):
             passes = {d: int(s.get(f"edge_map.passes.ell.{d}", 0))
                       for d in ("pull", "push", "out_sum")}
             expect = ((passes["pull"] + passes["push"])
-                      * _k5_launches_per_pass(ga.in_tiles))
+                      * _k5_launches(ga.in_tiles))
             if launches == 0 or launches != expect:
                 raise AssertionError(
                     f"{ordering} {app}: {launches} K5 launches, the counters' "
@@ -1974,8 +1996,7 @@ def stream_plane(gw, root, device):
         launches = _ell_launches() - n0
         tiles_s, tiles = push_tiles.take()
         if fused:
-            want = sum(passes() * _k5_launches_per_pass(b + d)
-                       for b, d in tiles)
+            want = sum(passes() * _k5_launches(b, d) for b, d in tiles)
             if len(tiles) > 1 or launches != want:
                 raise AssertionError(f"fused refresh: {launches} K5 launches "
                                      f"for {passes()} passes over "
@@ -4589,8 +4610,9 @@ def main() -> int:
                          f"{n} {c[n + '_ms']:.4f}" for n in NARROW_BUILDS)
                      + " ms")
         log(line + f"; its share of the bound {c['bound_share_ms']:.4f} ms")
-    log(f"timed pull: kernel {t['ms']:.4f} ms ({t['launches_per_call']} "
-        f"launches; the device's time alone {t['device_ms']:.4f} ms), full fused_edge_map {t['fused_ms']:.4f} ms, plain "
+    log(f"timed pull: fused_edge_map {t['ms']:.4f} ms "
+        f"({t['launches_per_call']} K5 launches; the device's time alone "
+        f"{t['device_ms']:.4f} ms), plain "
         f"{t['plain_ms']:.4f} ms, cuSPARSE {t['library_ms']:.4f} ms (max |err| "
         f"vs flat {t['library_max_abs_err']:.3g}), bound "
         f"{t['bound_ms']:.4f} ms ({t['bound_bytes']} B), padded-plane bound "

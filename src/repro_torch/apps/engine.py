@@ -18,7 +18,7 @@ Three backends implement the primitives (``pull`` / ``push`` methods):
     float atomics).  A push reduces the same edge multiset as the pull of the
     same property, so it is the pull's result combined with ``init``.
   * ``EllBackend`` — the fused K5 kernel over per-DBG-group ELL tiles: one
-    launch per width class.  Push is the transposed pull with an
+    call maps every width class.  Push is the transposed pull with an
     ``init``-seeded accumulator over the same in-direction tiles.  min/max
     are bit-identical to flat; sums differ only in fp association (~1e-6).
   * ``PackedBackend`` (``repro_torch.pack``) — the same K5 kernel straight
@@ -267,10 +267,11 @@ class FusedEdgeMaps:
     One tile set serves both primitives: pull reduces a row's lanes; push
     seeds the row accumulator with ``init`` and runs the same kernel (a
     push-with-reduction IS the transposed pull).  Subclasses provide
-    ``in_tiles``, ``num_vertices`` and the tile geometry fields.
+    ``in_tiles`` (an ``ops.TileSet``, whose class table is built once, with
+    the set), ``num_vertices`` and the tile geometry fields.
     """
 
-    in_tiles: Tuple  # Tuple[EllTileGroup, ...]
+    in_tiles: Tuple  # ops.TileSet of EllTileGroup
     row_tile: int
     width_tile: int
 

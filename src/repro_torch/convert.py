@@ -16,7 +16,7 @@ from .device import resolve_device
 from .graph.csr import CSR, Graph
 from .kernels._wrap import class_segments
 from .kernels.csr_spmv.ops import EllGroup
-from .kernels.edge_map.ops import EllTileGroup
+from .kernels.edge_map.ops import EllTileGroup, TileSet
 from .pack import codec
 from .pack.layout import ColdSegment, HotGroup, PackedAdjacency
 
@@ -44,8 +44,8 @@ def tiles_from_numpy(
     groups: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray,
                            Optional[np.ndarray], Optional[np.ndarray]]],
     device: Union[str, torch.device],
-) -> Tuple[EllTileGroup, ...]:
-    """``(rows, idx, deg, w, alive)`` numpy planes → ``EllTileGroup``s on
+) -> TileSet:
+    """``(rows, idx, deg, w, alive)`` numpy planes → a ``TileSet`` on
     ``device``.  ``idx`` keeps its stored width (uint16 stays
     ``torch.uint16``); ``rows`` become int64, torch's index type.  A class
     wider than 1,024 lanes gets its K5 segment list from ``deg``, as
@@ -65,7 +65,7 @@ def tiles_from_numpy(
             rows=t(rows, np.int64), idx=t(idx), deg=t(deg, np.int32),
             w=t(w, np.float32), alive=t(alive, np.int8),
             segments=class_segments(np.asarray(deg), idx.shape[1], device)))
-    return tuple(out)
+    return TileSet(out)
 
 
 def packed_adjacency_from_numpy(

@@ -51,12 +51,34 @@
 //    partials in index order through shared memory): sums come out the
 //    same from run to run, with no float atomics, and min / max are exact;
 //  * K query lanes of a plane ride one pass over the row's ids, KC of them
-//    per thread (blockIdx.y walks chunks of KC when K > KC).
+//    per thread (blockIdx.y walks chunks of KC when K > KC);
+//  * a whole tile set is one call (K5_GROUPED), not a launch per class and
+//    a combine: one edge_map_kernel launch covers up to eight narrow
+//    classes that share the id width, the weight / alive planes and
+//    batching, which the launch passes by value; each block finds its class
+//    by a scan of the classes' first blocks (a launch of one class, as
+//    ell_edge_map's always is, skips it), and every row is stored
+//    straight into the vertex-space output at rows[r], seeded by
+//    init[rows[r]].  A row keeps its lane group, its walk and its shuffle
+//    tree, so its result is bitwise the one its class's own launch gives;
+//    rows are disjoint across classes, so the store is the set-scatter the
+//    combine was.  A wide class keeps its two launches, its fold storing
+//    the same way.  The caller's class table (ops.py, built once per tile
+//    set) holds each class's planes and shapes; how the classes are batched,
+//    grouped into launches and cut into blocks is decided here, for both
+//    entries alike;
+//  * an unbatched narrow block of a launch of several classes walks
+//    kNarrowPasses chunks of rows one after another: its rows are short (a
+//    row of 8 to 128 lanes is one or a few loads a thread), so the class
+//    lookup, paid once a block, is paid once for eight chunks (PERF.md,
+//    section 6, times 1, 2, 4 and 8); a launch of one class has no lookup
+//    and walks one chunk a block.
 //
 // Build: one shared library per reduction, compiled with -DK5_REDUCE=0|1|2
 // (see repro_torch/kernels/_build.py); -DK5_BATCH_ABOVE=N overrides the
-// narrow kernel's batch threshold (0: always batch, 32 or more: never).  The C entry returns cudaGetLastError()
-// after its launches; they are on the caller's stream and allocate nothing.
+// batch threshold of both entries (0: always batch, 32 or more: never).
+// Each C entry returns the first launch error; the launches are on the
+// caller's stream and allocate nothing.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -182,12 +204,33 @@ __device__ __forceinline__ void walk(
 // kBatchAbove lanes of its row; below that the warps, not a batch, keep the
 // gathers in flight, and a batch's registers would only cost occupancy.  A
 // narrow-kernel thread walks at most kNarrowLanes lanes (1,024 / 32), so a
-// threshold of that or more never batches, and 0 always does; only the
-// kernels a threshold can pick are compiled.
+// threshold of that or more never batches, and 0 always does.
 template <int KC>
 constexpr int kUnroll = KC == 1 ? 8 : 4;
 constexpr int kBatchAbove = K5_BATCH_ABOVE;
 constexpr int kNarrowLanes = 1024 / 32;
+
+// Chunks of kThreads / group rows that one narrow block walks one after
+// another: kNarrowPasses where the block pays a class lookup (a launch of
+// several classes) and its rows are short (unbatched), so the lookup is
+// paid once for several chunks; else one, as a launch per class walks.
+constexpr int kNarrowPasses = 8;
+__host__ __device__ constexpr int narrow_passes(bool batched, int classes) {
+  return !batched && classes > 1 ? kNarrowPasses : 1;
+}
+
+// Whether a narrow class of `width` lanes and `group` lanes per row batches
+// its loads, and its blocks at `passes` chunks a block.
+bool batches(int64_t width, int64_t group) {
+  return kBatchAbove == 0 ||
+         (kBatchAbove < kNarrowLanes &&
+          width > static_cast<int64_t>(kBatchAbove) * group);
+}
+
+int64_t narrow_blocks(int64_t rows, int64_t group, int passes) {
+  const int64_t per_block = static_cast<int64_t>(kThreads) * passes;
+  return (rows * group + per_block - 1) / per_block;
+}
 
 __device__ __forceinline__ int64_t clip_degree(const int32_t* deg, int64_t row,
                                                int64_t width) {
@@ -195,8 +238,31 @@ __device__ __forceinline__ int64_t clip_degree(const int32_t* deg, int64_t row,
   return d < 0 ? 0 : (d > width ? width : d);
 }
 
-// A row's reduced lanes r -> y: padding lanes take the identity, then the
-// accumulator is seeded by init (or the identity).
+// One tile class, as a row of the class table: ops.py's CLASS_FIELDS, one
+// int64 each, in this order (the grouped entry checks their number).
+// `rows` null: row r's result is stored at r (ell_edge_map's y); else at
+// rows[r] of the vertex-space output.
+struct ClassEntry {
+  const void* idx;
+  const int32_t* deg;
+  const float* w;
+  const int8_t* alive;
+  const int64_t* rows;
+  const int32_t* segs;   // a wide class's segment list; else null
+  int64_t num_segs;
+  int64_t plane_rows;    // rows of the planes (padding rows included)
+  int64_t num_rows;      // rows walked and stored: the class's own
+  int64_t width;
+  int64_t group;         // lanes per row: 8, 16, 32, or 256 (wide)
+  int64_t idx_bytes;     // 2 (uint16 ids) or 4 (int32)
+};
+constexpr int kFields = sizeof(ClassEntry) / sizeof(int64_t);
+static_assert(sizeof(ClassEntry) == kFields * sizeof(int64_t),
+              "a class is a row of int64 fields");
+
+// A row's reduced lanes r -> y[o]: padding lanes take the identity, then
+// the accumulator is seeded by init[o] (or the identity).  o is the row's
+// output offset: its row in a class's y, or its vertex in the output.
 template <int RED, bool INIT>
 __device__ __forceinline__ void finish(float r, float* __restrict__ y,
                                        const float* __restrict__ init,
@@ -209,49 +275,103 @@ __device__ __forceinline__ void finish(float r, float* __restrict__ y,
   y[o] = combine<RED>(b, r);
 }
 
+// A row's output row o (its vertex, or the row itself in a class's own y),
+// checked against the output.
+__device__ __forceinline__ int64_t checked_out(int64_t o, int64_t out_rows) {
+  if (o < 0 || o >= out_rows) {
+    __trap();  // a row id outside the output: a malformed tile
+  }
+  return o;
+}
+
+// The classes one narrow launch covers, passed by value as a
+// __grid_constant__ parameter: the kernel reads them from the constant
+// bank, as it reads its own parameters, with no load from device memory
+// and no staging.  first_block[j] is class j's first block in the launch
+// (ascending from 0); kMaxClasses bounds a launch's classes and the scan
+// that finds a block's class.
+constexpr int kMaxClasses = 8;
+struct ClassList {
+  ClassEntry cls[kMaxClasses];
+  int64_t first_block[kMaxClasses];
+  int count;
+};
+
 // Narrow classes: a group of `group` (8, 16 or 32) lanes per row; UNROLL is
-// kUnroll, or 1 where no thread walks more than kBatchAbove lanes.
+// kUnroll, or 1 where no thread walks more than kBatchAbove lanes.  The
+// launch covers list.count classes, each from its first block on: a block's
+// class is the last whose first block it has reached, and the block walks
+// narrow_passes consecutive chunks of kThreads / group rows, each row
+// exactly as a launch of that class alone would.
 template <int RED, typename IdT, int WMODE, int FMODE, bool ALIVE, bool INIT,
           int KC, int UNROLL>
 __global__ void __launch_bounds__(kThreads)
-edge_map_kernel(const float* __restrict__ x, const IdT* __restrict__ idx,
-                const int32_t* __restrict__ deg, const float* __restrict__ w,
+edge_map_kernel(const float* __restrict__ x,
                 const int8_t* __restrict__ frontier,
-                const int8_t* __restrict__ alive,
                 const float* __restrict__ init, float* __restrict__ y,
-                int64_t rows, int64_t width, int64_t num_vertices, int k_total,
-                int group, float neutral, float identity) {
-  const int sub = threadIdx.x & (group - 1);
-  const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / group;
-  const int k0 = blockIdx.y * KC;
-  // Every lane of the warp reaches the shuffles below, so rows past the end
-  // still run the tree, with no columns.
-  const bool live = row < rows;
-  const int64_t d = live ? clip_degree(deg, row, width) : 0;
-
-  float acc[KC];
+                const __grid_constant__ ClassList list, int64_t num_vertices,
+                int64_t out_rows, int k_total, float neutral,
+                float identity) {
+  const int64_t b = blockIdx.x;
+  // A one-class list (ell_edge_map's, or a grouped launch of one class)
+  // skips the scan: its fields are the parameters' own.
+  ClassEntry c = list.cls[0];
+  int64_t first_block = 0;
+  if (list.count > 1) {
 #pragma unroll
-  for (int k = 0; k < KC; ++k) acc[k] = lane_start<RED>();
-  walk<RED, IdT, WMODE, FMODE, ALIVE, KC, UNROLL>(
-      acc, x, idx, w, frontier, alive, row * width, sub, d, group,
-      num_vertices, k_total, k0, neutral, identity);
-
-#pragma unroll
-  for (int k = 0; k < KC; ++k) {
-    float v = acc[k];
-    for (int off = group >> 1; off > 0; off >>= 1) {
-      v = combine<RED>(v, __shfl_down_sync(0xffffffffu, v, off, group));
+    for (int j = 1; j < kMaxClasses; ++j) {
+      if (j < list.count && b >= list.first_block[j]) {
+        c = list.cls[j];
+        first_block = list.first_block[j];
+      }
     }
-    acc[k] = v;
   }
+  const int group = static_cast<int>(c.group);
+  const int shift = 31 - __clz(group);  // group is a power of two
+  const int sub = threadIdx.x & (group - 1);
+  const int k0 = blockIdx.y * KC;
+  const int passes = narrow_passes(UNROLL != 1, list.count);
+  const int64_t chunk0 = (b - first_block) * passes;
+#pragma unroll 1
+  for (int pass = 0; pass < passes; ++pass) {
+    const int64_t first = (chunk0 + pass) * kThreads;
+    if ((first >> shift) >= c.num_rows) break;  // the same for the block
+    const int64_t row = (first + threadIdx.x) >> shift;
+    // Every lane of the warp reaches the shuffles below, so rows past the
+    // end still run the tree, with no columns.
+    const bool live = row < c.num_rows;
+    const int64_t d = live ? clip_degree(c.deg, row, c.width) : 0;
+    // Where the row's result goes, read before the walk: the load of
+    // rows[row] then overlaps the walk's, and the store after the shuffles
+    // waits on nothing.
+    const bool stores = live && sub == 0;
+    const int64_t vertex =
+        !stores ? 0 : c.rows == nullptr ? row : c.rows[row];
 
-  if (live && sub == 0) {
+    float acc[KC];
+#pragma unroll
+    for (int k = 0; k < KC; ++k) acc[k] = lane_start<RED>();
+    walk<RED, IdT, WMODE, FMODE, ALIVE, KC, UNROLL>(
+        acc, x, static_cast<const IdT*>(c.idx), c.w, frontier, c.alive,
+        row * c.width, sub, d, group, num_vertices, k_total, k0, neutral,
+        identity);
+
 #pragma unroll
     for (int k = 0; k < KC; ++k) {
-      if (KC == 1 || k0 + k < k_total) {
-        finish<RED, INIT>(acc[k], y, init, row * k_total + k0 + k, d, width,
-                          identity);
+      float v = acc[k];
+      for (int off = group >> 1; off > 0; off >>= 1) {
+        v = combine<RED>(v, __shfl_down_sync(0xffffffffu, v, off, group));
+      }
+      acc[k] = v;
+    }
+
+    if (stores) {
+      const int64_t o = checked_out(vertex, out_rows) * k_total + k0;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        if (KC == 1 || k0 + k < k_total) {
+          finish<RED, INIT>(acc[k], y, init, o + k, d, c.width, identity);
+        }
       }
     }
   }
@@ -318,98 +438,93 @@ edge_map_block_kernel(const float* __restrict__ x,
 
 // fold_kernel: one thread per (segment, query lane); the thread of a row's
 // first segment (lane_begin == 0) folds the row's partials in segment order
-// and finishes the row.
+// and finishes the row, if it is one of the class's num_rows (the list
+// also covers the planes' padding rows).
 template <int RED, bool INIT>
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const int32_t* __restrict__ segs, int64_t num_segs,
             const float* __restrict__ partial,
-            const int32_t* __restrict__ deg, const float* __restrict__ init,
-            float* __restrict__ y, int64_t width, int k_total,
-            float identity) {
+            const int32_t* __restrict__ deg, const int64_t* __restrict__ rows,
+            int64_t num_rows, const float* __restrict__ init,
+            float* __restrict__ y, int64_t out_rows, int64_t width,
+            int k_total, float identity) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t s = t / k_total;
   const int k = static_cast<int>(t - s * k_total);
   if (s >= num_segs || segs[3 * s + 1] != 0) return;
   const int64_t row = segs[3 * s];
+  if (row >= num_rows) return;
   int64_t q_end = s + 1;
   while (q_end < num_segs && segs[3 * q_end] == row) ++q_end;
   float r = lane_start<RED>();
   for (int64_t q = s; q < q_end; ++q) {
     r = combine<RED>(r, partial[q * k_total + k]);
   }
-  finish<RED, INIT>(r, y, init, row * k_total + k,
+  finish<RED, INIT>(r, y, init,
+                    checked_out(rows == nullptr ? row : rows[row], out_rows) *
+                            k_total + k,
                     clip_degree(deg, row, width), width, identity);
 }
 
-struct Args {
-  const void* x;
-  const void* idx;
-  const void* deg;
-  const void* w;
-  const void* frontier;
-  const void* alive;
-  const void* init;
-  void* y;
-  const void* segs;
-  int64_t num_segs;
-  void* partial;
-  int64_t rows;
-  int64_t width;
+// What one edge map passes to every launch it makes.
+struct Call {
+  const float* x;
+  const int8_t* frontier;
+  const float* init;
+  float* y;
   int64_t num_vertices;
+  int64_t out_rows;
   int k;
-  int group;
   float neutral;
   float identity;
   cudaStream_t stream;
 };
 
+template <int KC>
+unsigned query_chunks(int k) {
+  return static_cast<unsigned>((k + KC - 1) / KC);
+}
+
+// One launch of edge_map_kernel over `blocks` blocks of the classes of
+// `list`, batched or not.
 template <int RED, typename IdT, int WMODE, int FMODE, bool ALIVE, bool INIT,
           int KC>
-cudaError_t launch(const Args& a) {
-  const unsigned chunks = static_cast<unsigned>((a.k + KC - 1) / KC);
-  const float* x = static_cast<const float*>(a.x);
-  const IdT* idx = static_cast<const IdT*>(a.idx);
-  const int32_t* deg = static_cast<const int32_t*>(a.deg);
-  const float* w = static_cast<const float*>(a.w);
-  const int8_t* frontier = static_cast<const int8_t*>(a.frontier);
-  const int8_t* alive = static_cast<const int8_t*>(a.alive);
-  const float* init = static_cast<const float*>(a.init);
-  float* y = static_cast<float*>(a.y);
-  if (a.group != kThreads) {
-    const int64_t threads = a.rows * a.group;
-    const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
-                    chunks);
-    if constexpr (kBatchAbove > 0) {
-      if (kBatchAbove >= kNarrowLanes || a.width <= kBatchAbove * a.group) {
-        edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, 1>
-            <<<grid, kThreads, 0, a.stream>>>(
-                x, idx, deg, w, frontier, alive, init, y, a.rows, a.width,
-                a.num_vertices, a.k, a.group, a.neutral, a.identity);
-        return cudaGetLastError();
-      }
-    }
-    if constexpr (kBatchAbove < kNarrowLanes) {
-      edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, kUnroll<KC>>
-          <<<grid, kThreads, 0, a.stream>>>(
-              x, idx, deg, w, frontier, alive, init, y, a.rows, a.width,
-              a.num_vertices, a.k, a.group, a.neutral, a.identity);
-    }
-    return cudaGetLastError();
+cudaError_t launch_narrow(const Call& a, const ClassList& list,
+                          int64_t blocks, bool batched) {
+  const dim3 grid(static_cast<unsigned>(blocks), query_chunks<KC>(a.k));
+  if (batched) {
+    edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, kUnroll<KC>>
+        <<<grid, kThreads, 0, a.stream>>>(a.x, a.frontier, a.init, a.y, list,
+                                          a.num_vertices, a.out_rows, a.k,
+                                          a.neutral, a.identity);
+  } else {
+    edge_map_kernel<RED, IdT, WMODE, FMODE, ALIVE, INIT, KC, 1>
+        <<<grid, kThreads, 0, a.stream>>>(a.x, a.frontier, a.init, a.y, list,
+                                          a.num_vertices, a.out_rows, a.k,
+                                          a.neutral, a.identity);
   }
-  const int32_t* segs = static_cast<const int32_t*>(a.segs);
-  if (a.num_segs == 0) return cudaSuccess;
+  return cudaGetLastError();
+}
+
+// A wide class's two launches: its segments' blocks, then the fold.
+template <int RED, typename IdT, int WMODE, int FMODE, bool ALIVE, bool INIT,
+          int KC>
+cudaError_t launch_wide(const Call& a, const ClassEntry& c, float* partial) {
+  if (c.num_segs == 0) return cudaSuccess;
   edge_map_block_kernel<RED, IdT, WMODE, FMODE, ALIVE, KC>
-      <<<dim3(static_cast<unsigned>(a.num_segs), chunks), kThreads, 0,
-         a.stream>>>(x, idx, deg, w, frontier, alive, segs,
-                     static_cast<float*>(a.partial), a.rows, a.width,
-                     a.num_vertices, a.k, a.neutral, a.identity);
+      <<<dim3(static_cast<unsigned>(c.num_segs), query_chunks<KC>(a.k)),
+         kThreads, 0, a.stream>>>(
+          a.x, static_cast<const IdT*>(c.idx), c.deg, c.w, a.frontier,
+          c.alive, c.segs, partial, c.plane_rows, c.width, a.num_vertices,
+          a.k, a.neutral, a.identity);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t threads = a.num_segs * a.k;
+  const int64_t threads = c.num_segs * a.k;
   fold_kernel<RED, INIT>
       <<<static_cast<unsigned>((threads + kThreads - 1) / kThreads), kThreads,
-         0, a.stream>>>(segs, a.num_segs, static_cast<const float*>(a.partial),
-                        deg, init, y, a.width, a.k, a.identity);
+         0, a.stream>>>(c.segs, c.num_segs, partial, c.deg, c.rows,
+                        c.num_rows, a.init, a.y, a.out_rows, c.width, a.k,
+                        a.identity);
   return cudaGetLastError();
 }
 
@@ -429,22 +544,60 @@ cudaError_t pick3(int m, F&& f) {
   }
 }
 
+// The launches of the classes of `list`: one wide class's two, or one
+// narrow launch of `blocks` blocks, with the first class's modes as
+// template arguments.
+cudaError_t launch(const Call& a, const ClassList& list, int64_t blocks,
+                   bool batched, int wmode, int fmode, float* partial) {
+  const ClassEntry& c = list.cls[0];
+  return pick_bool(c.idx_bytes == 2, [&](auto u16) {
+    using IdT = std::conditional_t<decltype(u16)::value, uint16_t, int32_t>;
+    return pick3(wmode, [&](auto wm) {
+      return pick3(fmode, [&](auto fm) {
+        return pick_bool(c.alive != nullptr, [&](auto al) {
+          return pick_bool(a.init != nullptr, [&](auto in) {
+            return pick_bool(a.k == 1, [&](auto one) {
+              constexpr int W = decltype(wm)::value, F = decltype(fm)::value;
+              constexpr bool A = decltype(al)::value, I = decltype(in)::value;
+              constexpr int KC = decltype(one)::value ? 1 : 8;
+              if (c.group == kThreads) {
+                return launch_wide<K5_REDUCE, IdT, W, F, A, I, KC>(a, c,
+                                                                  partial);
+              }
+              return launch_narrow<K5_REDUCE, IdT, W, F, A, I, KC>(
+                  a, list, blocks, batched);
+            });
+          });
+        });
+      });
+    });
+  });
+}
+
+bool valid_group(int64_t group) {
+  return group == 8 || group == 16 || group == 32 || group == kThreads;
+}
+
 }  // namespace
 
 #if K5_REDUCE == 0
 #define K5_ENTRY k5_edge_map_sum
+#define K5_GROUPED k5_grouped_sum
 #elif K5_REDUCE == 1
 #define K5_ENTRY k5_edge_map_min
+#define K5_GROUPED k5_grouped_min
 #else
 #define K5_ENTRY k5_edge_map_max
+#define K5_GROUPED k5_grouped_max
 #endif
 
-// idx_bytes: 2 (uint16 ids) or 4 (int32 ids).  group: lanes per row, 8,
-// 16, 32 or 256; 256 takes the two-launch split over segs: num_segs int32
-// (row, lane_begin, lane_end) triples sorted by row, each row's in lane
-// order from lane 0, together covering [0, deg) of every row, with partial
-// float scratch of num_segs * k.  Pointers that a mode does not read may be
-// null.  Returns a cudaError_t (0 on success).
+// One tile class into its own y (ell_edge_map).  idx_bytes: 2 (uint16
+// ids) or 4 (int32 ids).  group: lanes per row, 8, 16, 32 or 256; 256
+// takes the two-launch split over segs: num_segs int32 (row, lane_begin,
+// lane_end) triples sorted by row, each row's in lane order from lane 0,
+// together covering [0, deg) of every row, with partial float scratch of
+// num_segs * k.  Pointers that a mode does not read may be null.  Returns
+// a cudaError_t (0 on success).
 extern "C" int K5_ENTRY(const void* x, const void* idx, int idx_bytes,
                         const void* deg, const void* w, int wmode,
                         const void* frontier, int fmode, const void* alive,
@@ -452,34 +605,116 @@ extern "C" int K5_ENTRY(const void* x, const void* idx, int idx_bytes,
                         int64_t num_segs, void* partial, int64_t rows,
                         int64_t width, int64_t num_vertices, int k, int group,
                         float neutral, float identity, void* stream) {
-  if ((idx_bytes != 2 && idx_bytes != 4) || k < 1 ||
-      (group != 8 && group != 16 && group != 32 && group != kThreads) ||
+  if ((idx_bytes != 2 && idx_bytes != 4) || k < 1 || !valid_group(group) ||
       rows < 0 || width < 1 ||
       (group == kThreads &&
        (segs == nullptr || num_segs < rows || partial == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0) return 0;
-  const Args a{x,     idx,      deg,   w,        frontier, alive,
-               init,  y,        segs,  num_segs, partial,  rows,
-               width, num_vertices,    k,        group,    neutral,
-               identity, static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = pick_bool(idx_bytes == 2, [&](auto u16) {
-    using IdT = std::conditional_t<decltype(u16)::value, uint16_t, int32_t>;
-    return pick3(wmode, [&](auto wm) {
-      return pick3(fmode, [&](auto fm) {
-        return pick_bool(alive != nullptr, [&](auto al) {
-          return pick_bool(init != nullptr, [&](auto in) {
-            return pick_bool(k == 1, [&](auto one) {
-              return launch<K5_REDUCE, IdT, decltype(wm)::value,
-                            decltype(fm)::value, decltype(al)::value,
-                            decltype(in)::value,
-                            (decltype(one)::value ? 1 : 8)>(a);
-            });
-          });
-        });
-      });
-    });
-  });
-  return static_cast<int>(err);
+  ClassList list{};
+  list.cls[0] = ClassEntry{idx,      static_cast<const int32_t*>(deg),
+                           static_cast<const float*>(w),
+                           static_cast<const int8_t*>(alive),
+                           nullptr,  static_cast<const int32_t*>(segs),
+                           num_segs, rows, rows, width, group, idx_bytes};
+  list.count = 1;
+  const Call a{static_cast<const float*>(x),
+               static_cast<const int8_t*>(frontier),
+               static_cast<const float*>(init), static_cast<float*>(y),
+               num_vertices, rows, k, neutral, identity,
+               static_cast<cudaStream_t>(stream)};
+  const bool batched = batches(width, group);
+  return static_cast<int>(launch(a, list,
+                                 narrow_blocks(rows, group,
+                                               narrow_passes(batched, 1)),
+                                 batched, wmode, fmode,
+                                 static_cast<float*>(partial)));
+}
+
+// Every class of a tile set straight into the vertex-space output y
+// (out_rows rows, k floats each), from its class table (ops.py's
+// build_class_table): `classes` rows of `fields` int64 each, ClassEntry's
+// fields in its order.  Narrow classes that share the id width, the weight
+// and alive planes and batching share a launch, up to kMaxClasses in the
+// table's order; each wide class takes its two launches, its partials at
+// the next of the partial_rows rows of partial.  use_weights: 0, or 1 for
+// each class's weight plane (+1 where it has none).  init is the
+// (out_rows, k) seed or null.  *launches is set to the kernels launched.
+extern "C" int K5_GROUPED(const void* table, int classes, int fields,
+                          const void* x, const void* frontier, int fmode,
+                          const void* init, void* y, void* partial,
+                          int64_t partial_rows, int use_weights,
+                          int64_t num_vertices, int64_t out_rows, int k,
+                          float neutral, float identity, int* launches,
+                          void* stream) {
+  if (fields != kFields || classes < 0 || k < 1 || launches == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *launches = 0;
+  const ClassEntry* cls = static_cast<const ClassEntry*>(table);
+  const Call a{static_cast<const float*>(x),
+               static_cast<const int8_t*>(frontier),
+               static_cast<const float*>(init), static_cast<float*>(y),
+               num_vertices, out_rows, k, neutral, identity,
+               static_cast<cudaStream_t>(stream)};
+  // The narrow launches being filled, one per kind: id width, weight
+  // plane, alive plane, batching.
+  constexpr int kKinds = 16;
+  ClassList open[kKinds];
+  for (ClassList& l : open) l.count = 0;
+  int64_t next_partial = 0;
+  auto flush = [&](int kind) {
+    ClassList& l = open[kind];
+    const bool batched = kind >> 3;
+    const int passes = narrow_passes(batched, l.count);
+    int64_t blocks = 0;
+    for (int j = 0; j < l.count; ++j) {
+      l.first_block[j] = blocks;
+      blocks += narrow_blocks(l.cls[j].num_rows, l.cls[j].group, passes);
+    }
+    const cudaError_t err =
+        launch(a, l, blocks, batched, use_weights ? (l.cls[0].w ? 2 : 1) : 0,
+               fmode, nullptr);
+    *launches += 1;
+    l.count = 0;
+    return err;
+  };
+  for (int i = 0; i < classes; ++i) {
+    const ClassEntry& c = cls[i];
+    const bool wide = c.group == kThreads;
+    if ((c.idx_bytes != 2 && c.idx_bytes != 4) || !valid_group(c.group) ||
+        c.num_rows < 0 || c.num_rows > c.plane_rows || c.width < 1 ||
+        (wide && (c.segs == nullptr || partial == nullptr ||
+                  next_partial + c.num_segs > partial_rows))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (c.num_rows == 0) continue;
+    cudaError_t err = cudaSuccess;
+    if (wide) {
+      ClassList one{};
+      one.cls[0] = c;
+      one.count = 1;
+      err = launch(a, one, c.num_segs, false,
+                   use_weights ? (c.w ? 2 : 1) : 0, fmode,
+                   static_cast<float*>(partial) + next_partial * k);
+      next_partial += c.num_segs;
+      *launches += c.num_segs ? 2 : 0;
+    } else {
+      const bool batched = batches(c.width, c.group);
+      const int kind = (c.idx_bytes == 2) | (c.w != nullptr) << 1 |
+                       (c.alive != nullptr) << 2 | batched << 3;
+      ClassList& l = open[kind];
+      l.cls[l.count] = c;
+      l.count += 1;
+      if (l.count == kMaxClasses) err = flush(kind);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  for (int kind = 0; kind < kKinds; ++kind) {
+    if (open[kind].count == 0) continue;
+    const cudaError_t err = flush(kind);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

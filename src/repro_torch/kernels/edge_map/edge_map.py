@@ -22,6 +22,8 @@ The kernel is ``csrc/edge_map.cu``; it is built with ``nvcc`` at first use
 (``repro_torch.kernels._build``).  :func:`ell_edge_map` launches it for CUDA
 tensors and runs the plain PyTorch version (``ref.ell_edge_map_ref``) for
 tensors the caller put on the CPU; it never falls back from one to the other.
+A whole tile set goes through ``ops.fused_edge_map``, which maps every class
+in one call of the library's grouped entry.
 """
 from __future__ import annotations
 
@@ -95,10 +97,17 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
                        i64, i64, i32, i32, f32, f32, p]
         fn.restype = ctypes.c_int
         _KERNELS[red] = fn
+        fn = getattr(lib, f"k5_grouped_{red}")
+        fn.argtypes = [p, i32, i32, p, p, i32, p, p, p, i64, i32, i64, i64,
+                       i32, f32, f32, p, p]
+        fn.restype = ctypes.c_int
+        _KERNELS[f"grouped_{red}"] = fn
 
 
 def load_kernels() -> Dict[str, ctypes._CFuncPtr]:
-    """Build (first use) and bind the three K5 libraries; reduce → C entry."""
+    """Build (first use) and bind the three K5 libraries: ``reduce`` → the
+    one-class C entry, ``"grouped_" + reduce`` → the whole-tile-set entry
+    (``ops.fused_edge_map``)."""
     if not _KERNELS:
         from .._build import load_libraries
 

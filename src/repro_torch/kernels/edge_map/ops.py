@@ -6,13 +6,26 @@ vectorized through ``csr.ragged_offsets``; its geometry (the uint16 ids when
 V ≤ 65535, the 8-lane fine padding, the width-class merge) is the
 reference's exactly.
 
-``fused_edge_map`` is the device driver: one K5 launch per tile class, then
-an O(V) combine of per-class row results back into vertex space.  Rows are
-grouped by degree, so every vertex appears in exactly one class and the
-combine is a plain set-scatter (``index_copy_``, exact).  ``extra_tiles``
-(the stream's delta segment from ``coo_tiles``, whose destinations
-duplicate base rows) fold in with the reduction instead.  Nothing here
-materializes an O(E) edge-parallel intermediate.
+``fused_edge_map`` runs the map on the device.  On the card it maps a whole
+tile set in one call of K5's grouped entry, from the set's class table
+(:class:`ClassTable`: each class's planes and shapes, built once with the
+set, :class:`TileSet`).  The entry batches, groups and cuts the classes
+into blocks itself: one ``edge_map_kernel`` launch covers up to eight
+narrow classes of one id width, weight and alive planes and batching (the
+launch passes them by value and a block finds its class among them), and
+each wide class keeps its two launches.  Every row is stored straight into
+the vertex-space output at ``rows[r]``, seeded in push mode by
+``init[rows[r]]``: rows are grouped by degree, so every vertex lies in
+exactly one class, and the store is the set-scatter the per-class combine
+was, exact.  Each row keeps its lane group, its walk and its shuffle tree,
+so every result is bitwise the one a launch of its class alone gives
+(``edge_map.ell_edge_map``).  Before the call the output is filled with the
+identity (pull) or copied from ``init`` (push), one launch, for the rows no
+class holds.  ``extra_tiles`` (the stream's delta segment from
+``coo_tiles``, whose destinations duplicate base rows) keep a launch per
+class and fold in with the reduction instead.  CPU tensors run the plain
+version class by class.  Nothing here materializes an O(E) edge-parallel
+intermediate.
 
 ``refresh_alive`` and ``coo_tiles`` are the stream's packers: both build
 their planes on the host exactly as the reference does, then put them on
@@ -27,6 +40,7 @@ on a device as an ``EllTileGroup``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -34,12 +48,17 @@ import torch
 
 from ...device import resolve_device
 from ...graph import csr as csr_mod
-from .._wrap import class_segments, lanes_per_row, row_segments
+from .._wrap import (class_segments, lanes_per_row, launch_on, require,
+                     row_segments)
+from . import edge_map as k5
 from .edge_map import REDUCE_IDENTITY, edge_map_tile_bytes, ell_edge_map
 
 __all__ = [
+    "CLASS_FIELDS",
+    "ClassTable",
     "EllTileGroup",
     "ShardedTileGroup",
+    "TileSet",
     "ell_tiles",
     "ell_tiles_host",
     "upload_tiles",
@@ -76,6 +95,105 @@ class EllTileGroup(NamedTuple):
     @property
     def num_rows(self) -> int:
         return int(self.rows.shape[0])
+
+
+#: Columns of the class table, one int64 each, in the order of
+#: ``csrc/edge_map.cu``'s ``ClassEntry``: the planes' device pointers (0
+#: where a class has no such plane), the wide classes' segment list and its
+#: length, the planes' rows, the class's own rows, its width and lane group,
+#: and the id width in bytes.
+CLASS_FIELDS = ("idx", "deg", "w", "alive", "rows", "segs", "num_segs",
+                "plane_rows", "num_rows", "width", "group", "idx_bytes")
+_F = {name: i for i, name in enumerate(CLASS_FIELDS)}
+
+
+class ClassTable(NamedTuple):
+    """What K5's grouped entry reads of one tile set (``fused_edge_map`` on
+    the card), built once per set (:class:`TileSet`).
+
+    ``host``    (C, 12) int64, a row per non-empty class in the tiles' order
+                (``CLASS_FIELDS``)
+    ``device``  the tiles' device (``None`` for a set with no rows)
+    ``partial_rows`` the wide classes' segments: the scratch's rows
+    ``keep``    segment lists built here (the table points at them)
+    """
+
+    host: np.ndarray
+    device: Optional[torch.device]
+    partial_rows: int
+    keep: Tuple[torch.Tensor, ...] = ()
+
+    @property
+    def classes(self) -> int:
+        return int(self.host.shape[0])
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _class_row(t: EllTileGroup, device, keep: list) -> list:
+    """One class's row of the table, its planes checked as K5 reads them."""
+    r_pad, width = t.idx.shape
+    if t.idx.dtype not in (torch.uint16, torch.int32):
+        raise TypeError(f"idx must be uint16 or int32, got {t.idx.dtype}")
+    require(t.idx, "idx", t.idx.dtype, (r_pad, width), device)
+    require(t.deg, "deg", torch.int32, (r_pad,), device)
+    require(t.rows, "rows", torch.int64, (t.num_rows,), device)
+    if t.num_rows > r_pad:
+        raise ValueError(f"{t.num_rows} rows in a tile of {r_pad}")
+    for plane, name, dtype in ((t.w, "w", torch.float32),
+                               (t.alive, "alive", torch.int8)):
+        if plane is not None:
+            require(plane, name, dtype, (r_pad, width), device)
+    group = lanes_per_row(width)
+    segs = t.segments
+    if group == 256:
+        if segs is None:
+            from ...obs.counters import host_read
+
+            segs = class_segments(host_read(t.deg), width, device)
+            keep.append(segs)
+        require(segs, "segments", torch.int32, (segs.shape[0], 3), device)
+    elif segs is not None:
+        raise ValueError(f"a ({r_pad}, {width}) tile is narrow: segments "
+                         "split only rows wider than 1,024 lanes")
+    return [t.idx.data_ptr(), t.deg.data_ptr(), _ptr(t.w), _ptr(t.alive),
+            t.rows.data_ptr(), _ptr(segs),
+            0 if segs is None else int(segs.shape[0]), r_pad, t.num_rows,
+            width, group, t.idx.element_size()]
+
+
+def build_class_table(tiles: Sequence[EllTileGroup]) -> ClassTable:
+    """The class table of ``tiles``: a row for every class that holds rows,
+    in the tiles' order, all on one device."""
+    live = [t for t in tiles if t.num_rows]
+    device = live[0].idx.device if live else None
+    keep: list = []
+    rows = [_class_row(t, device, keep) for t in live]
+    host = np.array(rows, np.int64).reshape(-1, len(CLASS_FIELDS))
+    wide = host[:, _F["group"]] == 256
+    return ClassTable(host=host, device=device,
+                      partial_rows=int(host[wide, _F["num_segs"]].sum()),
+                      keep=tuple(keep))
+
+
+class TileSet(tuple):
+    """A tile set (``EllTileGroup``s, hottest class first) that carries its
+    class table, built once when the set is made (set-up, not per-call
+    work): what ``upload_tiles``, ``ell_tiles``, ``refresh_alive`` and
+    ``convert.tiles_from_numpy`` return, and what the fused backends hold.
+    ``fused_edge_map`` on the card takes no other tile set."""
+
+    table: ClassTable
+
+    def __new__(cls, tiles: Sequence[EllTileGroup] = ()):
+        self = super().__new__(cls, tiles)
+        self.table = build_class_table(self)
+        return self
+
+    def __reduce__(self):
+        return TileSet, (tuple(self),)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -137,7 +255,7 @@ def refresh_alive(
     adj: csr_mod.CSR,
     tiles: Tuple[EllTileGroup, ...],
     alive_edges: Optional[np.ndarray],
-) -> Tuple[EllTileGroup, ...]:
+) -> TileSet:
     """Rebuild ONLY the alive planes of existing tiles (idx, w, deg and the
     segment list untouched), each on its tile's device.
 
@@ -157,7 +275,7 @@ def refresh_alive(
         plane = _scatter_plane(t.idx.shape[0], t.idx.shape[1], row_rep, col,
                                alive_edges[pos], np.int8)
         out.append(t._replace(alive=torch.from_numpy(plane).to(t.idx.device)))
-    return tuple(out)
+    return TileSet(out)
 
 
 def ell_tiles(
@@ -168,7 +286,7 @@ def ell_tiles(
     width_tile: int = 128,
     alive_edges: Optional[np.ndarray] = None,
     device: Optional[Union[str, torch.device]] = None,
-) -> Tuple[EllTileGroup, ...]:
+) -> TileSet:
     """Pack one CSR direction into per-DBG-group ELL tiles on ``device``
     (``None``: the CUDA card, raising without one).
 
@@ -188,12 +306,13 @@ def ell_tiles(
 
 
 def upload_tiles(tiles: Sequence[EllTileGroup],
-                 device: torch.device) -> Tuple[EllTileGroup, ...]:
-    """Host tiles (``ell_tiles_host``) on ``device``."""
+                 device: torch.device) -> TileSet:
+    """Host tiles (``ell_tiles_host``) on ``device``, with their class
+    table."""
     def t(a):
         return None if a is None else torch.from_numpy(a).to(device)
 
-    return tuple(EllTileGroup(*(t(a) for a in g)) for g in tiles)
+    return TileSet(EllTileGroup(*(t(a) for a in g)) for g in tiles)
 
 
 def ell_tiles_host(
@@ -503,7 +622,7 @@ def fused_edge_map(
     row_tile: int = 64,
     width_tile: int = 128,
 ) -> torch.Tensor:
-    """Full fused edge map: one K5 launch per tile class + O(V) combine.
+    """Full fused edge map over a tile set, into vertex space.
 
     Pull mode (``init is None``): every vertex lands in exactly one primary
     class; uncovered (zero-degree) vertices take the reduction identity —
@@ -513,6 +632,12 @@ def fused_edge_map(
 
     ``x`` may be a (V, K) plane; ``init`` is then (V, K) and ``src_frontier``
     either shared (V,) or per-query (V, K).  ``init`` is not modified.
+
+    CUDA tensors take K5's grouped entry over the set's class table (see
+    the module doc; ``tiles`` must then be a :class:`TileSet`), counted in
+    ``edge_map.grouped.calls`` and ``edge_map.grouped.classes``
+    (``obs.counters.count_grouped``); CPU tensors the plain version, class
+    by class.
     """
     if identity is None:
         identity = REDUCE_IDENTITY[reduce]
@@ -520,48 +645,102 @@ def fused_edge_map(
     if src_frontier is not None:
         frontier = src_frontier.to(torch.int8).contiguous()
     x = x.contiguous()
+    kw = dict(reduce=reduce, frontier=frontier, neutral=neutral,
+              identity=identity)
+    if x.device.type == "cuda":
+        if not isinstance(tiles, TileSet):
+            raise TypeError("fused_edge_map on the card maps a TileSet "
+                            f"(ops.TileSet(tiles)), not a {type(tiles)}")
+        out = _map_grouped(tiles.table, x, num_vertices, init=init,
+                           use_weights=use_weights, **kw)
+    else:
+        out = _map_by_class(tiles, x, num_vertices, init=init,
+                            use_weights=use_weights, row_tile=row_tile,
+                            width_tile=width_tile, **kw)
+    for t in extra_tiles:
+        y = _map_class(t, x, use_weights=use_weights, row_tile=row_tile,
+                       width_tile=width_tile, **kw)
+        out = _scatter_combine(out, t.rows, y[: t.num_rows], reduce)
+    return out
+
+
+def _map_class(t: EllTileGroup, x, *, use_weights, row_tile, width_tile,
+               init_rows=None, **kw) -> torch.Tensor:
+    """One class through ``ell_edge_map``: its (R_pad,) or (R_pad, K) rows."""
+    r_pad, w_pad = t.idx.shape
+    return ell_edge_map(
+        x, t.idx, t.deg, w=t.w if use_weights else None,
+        unit_weights=use_weights, alive=t.alive, init_rows=init_rows,
+        segments=t.segments, row_tile=_tile_of(r_pad, row_tile),
+        width_tile=_tile_of(w_pad, width_tile), **kw)
+
+
+def _map_by_class(tiles, x, num_vertices, *, init, identity, **kw):
+    """The plain version's map: a class at a time, each combined into the
+    output by its rows (exact: every vertex lies in one class)."""
     lanes = tuple(x.shape[1:])
     out = (torch.full((num_vertices,) + lanes, identity, dtype=x.dtype,
                       device=x.device)
            if init is None else init.to(dtype=x.dtype, copy=True))
     for t in tiles:
-        r_pad, w_pad = t.idx.shape
         init_rows = None
         if init is not None:
-            init_rows = torch.full((r_pad,) + lanes, identity, dtype=x.dtype,
-                                   device=x.device)
+            init_rows = torch.full((t.idx.shape[0],) + lanes, identity,
+                                   dtype=x.dtype, device=x.device)
             init_rows[: t.num_rows] = out.index_select(0, t.rows)
-        y = ell_edge_map(
-            x, t.idx, t.deg,
-            reduce=reduce,
-            w=t.w if use_weights else None,
-            unit_weights=use_weights,
-            frontier=frontier,
-            alive=t.alive,
-            init_rows=init_rows,
-            neutral=neutral,
-            identity=identity,
-            segments=t.segments,
-            row_tile=_tile_of(r_pad, row_tile),
-            width_tile=_tile_of(w_pad, width_tile),
-        )
+        y = _map_class(t, x, init_rows=init_rows, identity=identity, **kw)
         out.index_copy_(0, t.rows, y[: t.num_rows])
-    for t in extra_tiles:
-        r_pad, w_pad = t.idx.shape
-        y = ell_edge_map(
-            x, t.idx, t.deg,
-            reduce=reduce,
-            w=t.w if use_weights else None,
-            unit_weights=use_weights,
-            frontier=frontier,
-            alive=t.alive,
-            neutral=neutral,
-            identity=identity,
-            segments=t.segments,
-            row_tile=_tile_of(r_pad, row_tile),
-            width_tile=_tile_of(w_pad, width_tile),
-        )
-        out = _scatter_combine(out, t.rows, y[: t.num_rows], reduce)
+    return out
+
+
+def _map_grouped(table: ClassTable, x, num_vertices, *, reduce, frontier,
+                 use_weights, neutral, init, identity) -> torch.Tensor:
+    """Every class of ``table`` in one call of K5's grouped entry, each row
+    stored at its vertex of the returned (V,) or (V, K) output."""
+    if reduce == "sum" and identity != 0.0:
+        raise ValueError("the sum kernel takes identity 0 only")
+    dev = x.device
+    if x.dtype != torch.float32 or x.dim() not in (1, 2):
+        raise TypeError("x must be a float32 (V,) or (V, K) tensor")
+    v = x.shape[0]
+    if v == 0:
+        raise ValueError("x is empty")
+    k = x.shape[1] if x.dim() == 2 else 1
+    shape = (num_vertices,) + tuple(x.shape[1:])
+    fmode = 0
+    if frontier is not None:
+        fmode = 2 if frontier.dim() == 2 else 1
+        if fmode == 2 and x.dim() != 2:
+            raise ValueError("a (V, K) frontier needs a (V, K) x")
+        require(frontier, "frontier", torch.int8,
+                (v, k) if fmode == 2 else (v,), dev)
+    seed = None
+    if init is None:
+        out = torch.full(shape, identity, dtype=torch.float32, device=dev)
+    else:
+        seed = init.to(torch.float32).contiguous()
+        require(seed, "init", torch.float32, shape, dev)
+        out = seed.clone()
+    if table.classes == 0:  # no rows: every vertex keeps its fill
+        return out
+    if table.device != dev:
+        raise ValueError(f"the tiles are on {table.device}, x on {dev}")
+    partial = (torch.empty((table.partial_rows, k), dtype=torch.float32,
+                           device=dev) if table.partial_rows else None)
+    launches = ctypes.c_int(0)
+    err = launch_on(dev, k5.load_kernels()[f"grouped_{reduce}"],
+                    table.host.ctypes.data, table.classes, len(CLASS_FIELDS),
+                    x.data_ptr(), _ptr(frontier), fmode, _ptr(seed),
+                    out.data_ptr(), _ptr(partial), table.partial_rows,
+                    int(use_weights), v, num_vertices, k, float(neutral),
+                    float(identity), ctypes.byref(launches))
+    if err != 0:
+        raise RuntimeError(
+            f"K5 grouped edge-map launch failed: cudaError {err}")
+    ell_edge_map.launches += launches.value
+    from ...obs.counters import count_grouped
+
+    count_grouped(table.classes)
     return out
 
 

@@ -49,7 +49,10 @@ Always on, whatever the hook and the tracer, the graph path's own counts
     call;
   * :func:`record_phases` publishes a set-up call's phases, timed by the
     caller, as spans and as seconds in the registry (``reorder.*``,
-    ``engine.build.*``).
+    ``engine.build.*``);
+  * :func:`count_grouped` counts each ``fused_edge_map`` on the card that
+    K5's grouped entry maps, and the tile classes it covers
+    (``edge_map.grouped.calls``, ``edge_map.grouped.classes``).
 
 Sharded passes (``repro_torch.dist``) count under ``sharded_flat`` /
 ``sharded_ell``, their edges from the layout's host degree vectors (base +
@@ -82,6 +85,7 @@ __all__ = [
     "count_swept_edges",
     "app_job",
     "record_phases",
+    "count_grouped",
 ]
 
 
@@ -316,6 +320,15 @@ def count_swept_edges(ga: Any) -> None:
     """Add the edges one ``out_edge_sum`` over ``ga`` walks (all of them)."""
     global OUT_EDGE_SUM_EDGES
     OUT_EDGE_SUM_EDGES += _num_edges(ga)
+
+
+def count_grouped(classes: int) -> None:
+    """One edge map that K5's grouped entry mapped, ``classes`` tile classes
+    in it: ``edge_map.grouped.calls`` and ``edge_map.grouped.classes`` in
+    the registry."""
+    reg = get_registry()  # looked up per call: reset_registry swaps it
+    reg.counter("edge_map.grouped.calls").inc()
+    reg.counter("edge_map.grouped.classes").inc(classes)
 
 
 def app_job(app: str):

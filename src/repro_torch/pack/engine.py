@@ -30,7 +30,8 @@ import torch
 from ..apps.engine import FusedEdgeMaps
 from ..device import resolve_device, to_device
 from ..kernels._wrap import class_segments
-from ..kernels.edge_map.ops import EllTileGroup, _pad_dim, _round_up, ell_tiles
+from ..kernels.edge_map.ops import (EllTileGroup, TileSet, _pad_dim, _round_up,
+                                    ell_tiles)
 from .layout import PackedAdjacency, PackedGraph
 
 __all__ = [
@@ -229,7 +230,7 @@ def packed_backend(pg: PackedGraph, *, row_tile: int = 64,
     tiles += ell_tiles(in_adj.cold_csr(), in_adj.boundaries,
                        row_tile=row_tile, width_tile=width_tile, device=dev)
     return PackedBackend(
-        in_tiles=tiles,
+        in_tiles=TileSet(tiles),
         out_hot=_hot_dev(pg.out_adj, dev),
         out_cold=_cold_dev(pg.out_adj, dev),
         in_deg=to_device(in_deg, dev, np.int32),

@@ -13,9 +13,9 @@ has one profile, ``"h100"``, whose numbers ``chip_smoke.py``
     8192 with TF32 off (the float32 pipes outside the tensor cores, the
     type the edge maps compute in);
   * ``dispatch_overhead`` — 0: the reference prices one Pallas grid step
-    of the interpreter; the port's kernels launch once per tile class, not
-    once per grid step, so no configuration of the space changes how many
-    launches one pass makes per grid step;
+    of the interpreter; the port's kernels launch per group of tile
+    classes, not once per grid step, so no configuration of the space
+    changes how many launches one pass makes per grid step;
   * ``link_bw`` — infinite: one card prices no collective.  The sharded
     engine (``repro_torch.dist``) runs, but the link rate between cards
     has not been measured: that waits for a machine with four cards.

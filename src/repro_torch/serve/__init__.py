@@ -2,8 +2,8 @@
 
 Port of ``repro.serve``.  K concurrent PageRank/SSSP queries share ONE
 edge-map pass per iteration (a 2D ``(V, K)`` property plane on any
-``engine.BACKENDS`` backend; on ``ell`` / ``packed`` one K5 launch per tile
-class), fed by a bounded admission queue and answered against refcounted
+``engine.BACKENDS`` backend; on ``ell`` / ``packed`` one grouped K5 call
+over every tile class), fed by a bounded admission queue and answered against refcounted
 immutable snapshots so ``StreamService`` ingest never blocks — or
 corrupts — an in-flight batch.
 

@@ -5,7 +5,7 @@ Port of ``repro.serve.batched``.  The paper's case for DBG is hot-vertex
 reuse; nothing amplifies that reuse like serving many concurrent queries
 over the same reordered graph.  Here the property plane is 2D end-to-end —
 ``(V, K)`` for K queries — so every iteration of every query rides a single
-edge map (on ``ell``/``packed`` one K5 launch per tile class reads the
+edge map (on ``ell``/``packed`` one grouped K5 call reads the
 tile/idx/frontier structure ONCE for all K lanes), routed through the same
 ``apps.engine`` primitives as the single-query apps, on any registered
 backend (flat oracle, ell, packed, the stream plane's ``StreamBackend``).

@@ -21,8 +21,8 @@ interpreter's switch, whose place the service's ``device`` takes (the
     pins the current snapshot, and answers all K queries in ONE
     ``serve.batched`` run — a single edge-map pass per iteration on
     whichever ``engine.BACKENDS`` entry the config names (on ``ell`` /
-    ``packed`` and under ``"auto"``, one K5 launch per tile class over the
-    (V, K) plane).
+    ``packed`` and under ``"auto"``, one grouped K5 call over the (V, K)
+    plane).
 
 With ``incremental_publish=True`` query batches run on the published
 version's ``StreamBackend`` (the stream plane's edge-parallel maps over

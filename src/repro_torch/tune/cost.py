@@ -31,7 +31,8 @@ term (modeled bytes / bandwidth), a compute term (~2 FLOPs per edge-lane),
 and a **dispatch term** — the grid steps each config's tile geometry
 implies (the reference's Pallas ``grid=(r//rt, w//wt)``) times the
 profile's ``dispatch_overhead``.  The port's ``"h100"`` profile has no
-dispatch term (its kernels launch once per tile class), so there ranking
+dispatch term (its kernels launch per group of tile classes, not per grid
+step), so there ranking
 is by modeled bytes; a profile built with a dispatch cost prices it as the
 reference does.
 

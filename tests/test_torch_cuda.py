@@ -9,7 +9,8 @@ block kind (MLA, MoE routing and stable-bin dispatch bitwise, RG-LRU, the
 ring, SSD, the enc-dec and VLM stubs) on the card against the CPU, a checkpoint
 saved on the card restored on the CPU, the wrappers raising rather than falling back, the
 edge-map counters' ``on_pass`` making no device synchronization, and the
-streaming plane: K5 over the stream's tiles (alive planes, a ``coo_tiles``
+grouped fused edge map bitwise against a launch per class and its
+counters, the streaming plane: K5 over the stream's tiles (alive planes, a ``coo_tiles``
 delta tile), the unfused stream push without float atomics, and the
 incremental consumers against the CPU; the serving plane: the batched apps
 on ``ell`` and ``packed``, ``GraphServeService`` and the tuner's sweep on
@@ -33,6 +34,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import edge_map_cases as cases  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -917,6 +920,109 @@ def test_counters_on_pass_makes_no_device_sync(cuda, backend):
     assert 0.0 < densities[0][0] < densities[0][1] < 1.0
 
 
+# ------------------------------------------------ K5's grouped fused map
+@pytest.mark.parametrize("case", cases.CASES, ids=cases.case_id)
+def test_grouped_fused_edge_map_is_bitwise_the_per_class_map(cuda, case):
+    """``fused_edge_map`` on the card (every class in one grouped call,
+    rows stored straight into the output) against the per-class map built
+    here (``ell_edge_map`` per class + ``index_copy_``, push seeded by each
+    class's own rows of ``init``; the extras by ``scatter_reduce``),
+    bitwise, over unit weights and a weight plane, no / a shared / a (V, K)
+    frontier, alive on and off, K = 1 and 8; a set with a wide (segmented)
+    class, a single narrow class, and extra tiles.  Two calls bitwise;
+    ``init`` untouched; ``ell_edge_map.launches`` counts the launches the
+    tiles call for (``edge_map_cases.launches``), fewer than one a class."""
+    from repro_torch.kernels._wrap import lanes_per_row
+    from repro_torch.kernels.edge_map import ell_edge_map, fused_edge_map
+
+    mode, reduce, kind, ids = case
+    sets, v = cases.tile_sets(kind, ids, cuda)
+    tiles = sets[False, False][0]
+    if kind == "single":
+        assert len(tiles) == 1
+    else:
+        assert any(t.segments is not None for t in tiles) and len(tiles) > 2
+    assert all(t.idx.dtype == getattr(torch, ids) for t in tiles)
+    for i, (weights, frontier, alive, k) in enumerate(cases.VARIANTS):
+        tiles, extra = sets[weights == "plane", alive]
+        x, fr, init = cases.inputs(v, k, frontier, cuda, seed=i)
+        seed = init.clone()
+        kw = dict(cases.map_kw(reduce, weights), src_frontier=fr,
+                  init=init if mode == "push" else None, extra_tiles=extra)
+        want = cases.oracle(tiles, x, v, **kw)
+        before = ell_edge_map.launches
+        got, again = (fused_edge_map(tiles, x, v, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        want_launches = cases.launches(tiles, extra)
+        assert ell_edge_map.launches - before == 2 * want_launches
+        if kind != "single":
+            assert want_launches < sum(
+                2 if lanes_per_row(t.idx.shape[1]) == 256 else 1
+                for t in tuple(tiles) + tuple(extra))
+        assert torch.equal(got, want), (weights, frontier, alive, k)
+        assert torch.equal(got, again)
+        assert torch.equal(init, seed)
+
+
+@pytest.mark.parametrize("mode", ("pull", "push"))
+@pytest.mark.parametrize("reduce", ("sum", "min", "max"))
+def test_grouped_fused_edge_map_over_an_empty_base_set(cuda, mode, reduce):
+    """A base set with no class (a stream whose base graph starts empty)
+    and every edge in the extra tiles: the map launches the extras alone,
+    bitwise the per-class map on the card and the plain version on the
+    CPU; a plain tuple of tiles raises instead of rebuilding a table."""
+    from repro_torch.kernels.edge_map import ell_edge_map, fused_edge_map
+
+    v = cases.edges("hub", "uint16")[3]
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        _, extra = cases.tile_sets("extra", "uint16", dev)[0][True, False]
+        base = cases.empty_base(v, dev)
+        assert base.table.classes == 0
+        x, fr, init = cases.inputs(v, 8, "planar", dev, seed=3)
+        kw = dict(cases.map_kw(reduce, "plane"), src_frontier=fr,
+                  init=init if mode == "push" else None, extra_tiles=extra)
+        before = ell_edge_map.launches
+        got[dev.type] = fused_edge_map(base, x, v, **kw)
+        if dev.type == "cuda":
+            assert ell_edge_map.launches - before == 2  # the extras' split
+            assert torch.equal(got["cuda"], cases.oracle(base, x, v, **kw))
+            with pytest.raises(TypeError, match="TileSet"):
+                fused_edge_map(tuple(base), x, v, **kw)
+    if reduce == "sum":
+        _close(got["cuda"].cpu(), got["cpu"])
+    else:
+        assert torch.equal(got["cuda"].cpu(), got["cpu"])
+
+
+def test_grouped_counters_count_each_edge_map_on_the_card(cuda):
+    """``edge_map.grouped.calls`` counts one grouped call per edge map on
+    the card and ``edge_map.grouped.classes`` that call's classes, through
+    the backends' pull and push; the same maps on the CPU count none."""
+    from repro_torch import apps
+    from repro_torch.obs import metrics
+
+    g = _graph()
+    v = g.num_vertices
+    x = torch.rand(v, generator=torch.Generator().manual_seed(2))
+    for backend in ("ell", "packed"):
+        counts = {}
+        for dev in (torch.device("cpu"), cuda):
+            ga = apps.to_arrays(g, backend=backend, device=dev)
+            reg = metrics.reset_registry()
+            xs = x.to(dev)
+            for _ in range(3):
+                ga.pull(xs)
+                ga.push(xs, reduce="min", use_weights=True)
+            counts[dev.type] = tuple(
+                0 if reg.get(n) is None else reg.get(n).value
+                for n in ("edge_map.grouped.calls", "edge_map.grouped.classes"))
+        classes = ga.in_tiles.table.classes
+        assert classes == sum(1 for t in ga.in_tiles if t.num_rows) > 1
+        assert counts == {"cpu": (0, 0), "cuda": (6, 6 * classes)}
+    metrics.reset_registry()
+
+
 # ------------------------------------------------------- K5 on stream tiles
 def _stream_graph(seed=0):
     """A weighted graph of 5,000 vertices whose vertex 17 has 3,000
@@ -953,8 +1059,8 @@ def test_k5_over_stream_tiles_matches_plain_version(cuda, reduce, mode):
     delta tile wider than 1,024 lanes, folded in as ``extra_tiles``;
     push (``init``, weights, a frontier) and pull, against the same tiles
     on the CPU (K5's plain version): min/max bitwise, sums in the band;
-    two calls bitwise; launches = base launches per pass + 2 for the delta
-    tile."""
+    two calls bitwise; launches = the base set's grouped launches per pass +
+    2 for the delta tile."""
     from repro_torch.kernels._wrap import lanes_per_row
     from repro_torch.kernels.edge_map import ell_edge_map
     from repro_torch.stream import incremental
@@ -989,8 +1095,10 @@ def test_k5_over_stream_tiles_matches_plain_version(cuda, reduce, mode):
     before = ell_edge_map.launches
     got, again = run(cuda), run(cuda)
     torch.cuda.synchronize()
-    per_pass = sum(2 if lanes_per_row(t.idx.shape[1]) == 256 else 1
-                   for t in base + delta)
+    per_pass = cases.launches(base, delta)
+    # grouped: fewer launches than a class each
+    assert per_pass < sum(2 if lanes_per_row(t.idx.shape[1]) == 256 else 1
+                          for t in base + delta)
     assert ell_edge_map.launches - before == 2 * per_pass
     assert torch.equal(got, again)
     if reduce == "sum":
