@@ -265,7 +265,15 @@ Phases (any failure raises, and the script exits non-zero):
      finite, grad norm > 0, every parameter changed by step 1 (float64
      sums), the first batch's loss lower after the steps than at step 1,
      K2 once per forward pass, no graph kernel; ms per step, tokens/s,
-     peak memory; an ``lm_train_blocks`` JSON line.
+     peak memory; an ``lm_train_blocks`` JSON line;
+ 22. the MLA decode kernel (``kernels.mla_decode``) at the
+     ``deepseek-v2-lite.decode`` cell's shapes: 32 sequences of lengths
+     drawn on the card in [4,096, 32,768], a bf16 cache against the plain
+     path within ``MLA_REL_L2`` relative L2, the float32 variant within
+     ``MLA_F32_REL_L2``, one DeepSeek-V2-Lite layer's ``mla_decode``
+     launching it once (counted from zero just before); its times beside
+     one ``scaled_dot_product_attention`` call of the same function and
+     the bound (the rows read once); an ``mla_decode`` JSON line.
 
 It prints the ``kernels`` JSON line (a kernel's time is ``ms`` from an idle
 device and ``device_ms`` on the device alone, its library call's
@@ -288,7 +296,9 @@ plain backward's ms per step; hist_bin's ``dbg_bin_*`` keys time its caller, the
 ``device_ops_per_call`` counts its device operations, and ``two_ops_ms`` and
 ``two_ops_device_ms`` time its two-op comparison build; ``stable_rank``
 replaces no TPU kernel, and its ``replaces`` names the reference's XLA
-stable mapping) and, as its last line,
+stable mapping; nor does ``latent_attention``, the MLA decode, whose
+``replaces`` names the reference's ``mla_decode`` and whose home path
+``lm_mla`` is phase 22's layer call) and, as its last line,
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -318,6 +328,16 @@ NARROW_BUILDS = {"batched": ["-DK5_REDUCE=0", "-DK5_BATCH_ABOVE=0"],
 # the last block's fold (phase 8)
 HIST_BIN_BUILDS = {"two_ops": ["-DHIST_BIN_TWO_OPS=1"]}
 LM_ARCH = "yi_9b"          # the LM serving path's model, at full width
+# the LM paths' own kernels: K2 and the MLA decode (any other is a graph
+# kernel, which no LM path launches)
+LM_KERNELS = ("hot_gather", "latent_attention")
+# phase 22: the MLA decode kernel at the deepseek-v2-lite.decode cell's
+# shapes: 32 sequences, lengths drawn log-uniformly in [4,096, 32,768], a
+# room of 32,768 + 1,024 rows; the bf16 kernel's band against the plain path
+# in float32 (relative L2 over the whole output; measured ~2e-3: the
+# probabilities and the output rounded to bf16), the float32 variant's
+MLA_BATCH, MLA_HISTORY, MLA_ROOM = 32, (4096, 32768), 32768 + 1024
+MLA_REL_L2, MLA_F32_REL_L2 = 5e-3, 1e-5
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 32  # requests, prompt and new tokens
 K2_ZIPF_T = 8192           # Zipf ids of K2's large check and timing
 # phase 14: every block kind at reduced size, card against CPU
@@ -445,6 +465,7 @@ def _wrappers():
     from repro_torch.kernels.edge_map import ell_edge_map
     from repro_torch.kernels.gather_embed import hot_gather
     from repro_torch.kernels.hist_bin import hist_bin, stable_rank
+    from repro_torch.kernels.mla_decode import latent_attention
     from repro_torch.kernels.pack_spmv import hot_spmv
 
     k = "src/repro_torch/kernels"
@@ -462,6 +483,10 @@ def _wrappers():
                         "src/repro/kernels/hist_bin/ops.py:30"),
         "hot_gather": (hot_gather, f"{k}/gather_embed/csrc/gather_embed.cu",
                        "src/repro/kernels/gather_embed/gather_embed.py:36"),
+        # no TPU kernel: the reference re-expands the latent cache in XLA
+        "latent_attention": (latent_attention,
+                             f"{k}/mla_decode/csrc/mla_decode.cu",
+                             "src/repro/lm/layers.py:395"),
     }
 
 
@@ -3463,7 +3488,7 @@ def _served(model, prompt):
         raise AssertionError(f"{cfg.arch_id}: K2 launched "
                              f"{launches['hot_gather']} times over {steps} "
                              "decode steps")
-    others = {k: n for k, n in launches.items() if k != "hot_gather" and n}
+    others = {k: n for k, n in launches.items() if k not in LM_KERNELS and n}
     if others:
         raise AssertionError(f"graph kernels launched on the LM path: {others}")
     if not (int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size):
@@ -4051,7 +4076,7 @@ def _counted(counts, what, k2, fn, *args, **kwargs):
     made = _read_launches()
     for n, c in made.items():
         counts[n] = counts.get(n, 0) + c
-    others = {k: n for k, n in made.items() if k != "hot_gather" and n}
+    others = {k: n for k, n in made.items() if k not in LM_KERNELS and n}
     if made["hot_gather"] != k2 or others:
         raise AssertionError(f"{what}: K2 launched {made['hot_gather']} "
                              f"times, not {k2}; graph kernels {others}")
@@ -4508,6 +4533,151 @@ def lm_train_blocks(device):
 
 
 # ---------------------------------------------------------------- main
+# ---------------------------------------------------------------- phase 22
+def _rel_l2(got, want):
+    """(over the whole output, worst per (sequence, head)) relative L2."""
+    got, want = got.float(), want.float()
+    whole = float((got - want).norm() / want.norm())
+    rows = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+    return whole, rows
+
+
+def mla_decode_plane(device):
+    """Phase 22: the MLA decode kernel at the deepseek-v2-lite.decode
+    cell's shapes (``MLA_BATCH`` sequences, lengths drawn on the card
+    log-uniformly in ``MLA_HISTORY``, a room of ``MLA_ROOM`` rows, 16
+    heads, DeepSeek-V2-Lite's softmax scale).  Checks: the kernel over the
+    bf16 cache against the plain path (``latent_attention_ref``, float32)
+    within ``MLA_REL_L2`` relative L2 (and 1e-2 per head, the card tests'
+    band), the float32 variant within ``MLA_F32_REL_L2``, the library call
+    within the bf16 band too; ``lm.layers.mla_decode`` of one
+    DeepSeek-V2-Lite layer over the cache launching it once, counted from
+    zero just before (``lm.mla_decode.launches`` and the wrapper's count),
+    its rows (``lm.mla_decode.cache_rows``) the lengths' sum.  Times: the
+    kernel from an idle device and on the device alone, the plain path,
+    the float32 variant, and one library call computing the same function
+    (``F.scaled_dot_product_attention``: the 16 heads as 16 queries of one
+    key head ``[latent | krope]`` of 576, values the latent, a length
+    mask, over the longest sequence's rows), beside the bound: the rows
+    read once, 1,152 B each, at ``HBM_BYTES_PER_S``."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.lm.model as model_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mla_decode import (latent_attention,
+                                                latent_attention_ref)
+    from repro_torch.lm import layers
+    from repro_torch.obs import metrics
+
+    cfg = get_config("deepseek_v2_lite")
+    dims = model_mod._mla_dims(cfg)
+    b, h, c, r = MLA_BATCH, cfg.n_heads, cfg.kv_lora, cfg.mla_d_rope
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    lo, hi = MLA_HISTORY
+    lens = torch.empty(b, device=device).uniform_(
+        math.log(lo), math.log(hi), generator=g).exp().round().long().clamp(
+        lo, hi)
+    rows = lens + 1  # the history and the new token's row
+    max_rows, total = int(rows.max()), int(rows.sum())
+    bf = torch.bfloat16
+    lat = torch.randn((b, MLA_ROOM, c), generator=g, device=device, dtype=bf)
+    kr = torch.randn((b, MLA_ROOM, r), generator=g, device=device, dtype=bf)
+    q = torch.randn((b, h, c + r), generator=g, device=device, dtype=bf)
+    ql, qr = q[..., :c], q[..., c:]
+    scale = dims.scale
+
+    got = latent_attention(ql, qr, lat, kr, rows, scale, max_rows, total)
+    want = latent_attention_ref(ql, qr, lat, kr, rows, scale, max_rows)
+    err, err_rows = _rel_l2(got, want)
+    max_abs = float((got.float() - want).abs().max())
+    if not (err <= MLA_REL_L2 and err_rows <= 1e-2):
+        raise AssertionError(f"mla_decode kernel: relative L2 {err:.3g} "
+                             f"(worst head {err_rows:.3g}) against the plain "
+                             f"path; band {MLA_REL_L2:g} (1e-2 per head)")
+    lat32, kr32 = lat.float(), kr.float()
+    ql32, qr32 = ql.float(), qr.float()
+    got32 = latent_attention(ql32, qr32, lat32, kr32, rows, scale, max_rows,
+                             total)
+    err32, err32_rows = _rel_l2(got32, want)
+    if not err32_rows <= MLA_F32_REL_L2:
+        raise AssertionError(f"mla_decode float32 variant: relative L2 "
+                             f"{err32:.3g} (worst head {err32_rows:.3g}); "
+                             f"band {MLA_F32_REL_L2:g}")
+
+    # the library's call: one key head of [latent | krope], values the
+    # latent, a length mask, over the longest sequence's rows
+    key = torch.cat([lat[:, :max_rows], kr[:, :max_rows]], dim=-1)[:, None]
+    value = lat[:, None, :max_rows]
+    mask = (torch.arange(max_rows, device=device)[None, :]
+            < rows[:, None])[:, None, None, :]
+    qs = q[:, None]
+
+    def library():
+        return F.scaled_dot_product_attention(qs, key, value, attn_mask=mask,
+                                              scale=scale)
+
+    lib_err, lib_rows = _rel_l2(library()[:, 0], want)
+    if not lib_rows <= 1e-2:
+        raise AssertionError(f"the library call is off the plain path by "
+                             f"{lib_rows:.3g} per head")
+
+    def kernel():
+        return latent_attention(ql, qr, lat, kr, rows, scale, max_rows, total)
+
+    def kernel32():
+        return latent_attention(ql32, qr32, lat32, kr32, rows, scale,
+                                max_rows, total)
+
+    t = dict(
+        ms=_events_ms(kernel, REPS),
+        device_ms=_events_ms(kernel, REPS, device_only=True),
+        plain_ms=_events_ms(lambda: latent_attention_ref(
+            ql, qr, lat, kr, rows, scale, max_rows), 3),
+        f32_ms=_events_ms(kernel32, REPS),
+        f32_device_ms=_events_ms(kernel32, REPS, device_only=True),
+        library_ms=_events_ms(library, REPS),
+        library_device_ms=_events_ms(library, REPS, device_only=True))
+    del key, value, mask, lat32, kr32, got32, want
+    torch.cuda.empty_cache()
+    bound_ms = total * (c + r) * 2 / HBM_BYTES_PER_S * 1e3
+    f32_bound_ms = 2 * bound_ms
+
+    # one DeepSeek-V2-Lite layer's decode over the cache, counted from zero
+    params = layers.mla_init(cfg.d_model, dims, generator=g, device=device,
+                             dtype=bf)
+    x = torch.randn((b, 1, cfg.d_model), generator=g, device=device,
+                    dtype=bf)
+    at = layers.DecodeAt(lens.cpu().numpy().astype(np.int64), lens)
+    metrics.reset_registry()
+    _reset_launches()
+    with torch.no_grad():
+        out, made = _launched({}, layers.mla_decode, params, x, dims, lat,
+                              kr, at)
+    _sync()
+    reg = metrics.get_registry()
+    counted = reg.get("lm.mla_decode.launches").value
+    cache_rows = reg.get("lm.mla_decode.cache_rows").value
+    metrics.reset_registry()
+    if made["latent_attention"] != 1 or counted != 1 or any(
+            n for k, n in made.items() if k != "latent_attention"):
+        raise AssertionError(f"mla_decode launched {made} (counted "
+                             f"{counted}), not the kernel once")
+    if cache_rows != total or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"mla_decode read {cache_rows} rows, not "
+                             f"{total}, or its output is not finite")
+    return dict(t, max_abs_err=max_abs, rel_l2=err, rel_l2_per_head=err_rows,
+                f32_rel_l2=err32, f32_rel_l2_per_head=err32_rows,
+                library_rel_l2=lib_err, bound_ms=bound_ms, bound_by="HBM",
+                f32_bound_ms=f32_bound_ms, launches_per_call=2,
+                launches=made, batch=b, rows=total, max_rows=max_rows,
+                mean_rows=total / b)
+
+
 def main() -> int:
     import gc
 
@@ -4630,7 +4800,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     pk = packed_path(g, g_dbg, gw_dbg, res, dev)
     packed = _read_launches()
-    idle = [k for k, n in packed.items() if n == 0 and k != "hot_gather"]
+    idle = [k for k, n in packed.items() if n == 0 and k not in LM_KERNELS]
     if idle:
         raise AssertionError(f"packed path: {idle} never launched ({packed})")
     log(f"packed path: launches {packed}; peak device memory "
@@ -4927,7 +5097,7 @@ def main() -> int:
     blocks = lm_blocks(dev)
     blocks_launches = {k: sum(b["launches"][k] for b in blocks.values())
                        for k in _wrappers()}
-    if any(n for k, n in blocks_launches.items() if k != "hot_gather"):
+    if any(n for k, n in blocks_launches.items() if k not in LM_KERNELS):
         raise AssertionError(f"graph kernels launched on the LM path: "
                              f"{blocks_launches}")
     log(f"LM block kinds at full width: {list(blocks)}, launches "
@@ -4963,6 +5133,26 @@ def main() -> int:
         f"{train_blocks_launches} ({time.perf_counter() - t0:.1f} s)")
     log(json.dumps({"lm_train_blocks": tb, "card": smi}))
 
+    # 22. the MLA decode kernel at the LM benchmark cell's shapes; its
+    # launches through the model's layer counted from zero inside
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mla = mla_decode_plane(dev)
+    log(f"MLA decode at the deepseek-v2-lite.decode shapes ({mla['batch']} "
+        f"sequences, {mla['rows']} rows, longest {mla['max_rows']}): kernel "
+        f"{mla['ms']:.4f} ms (device alone {mla['device_ms']:.4f}) against "
+        f"a bound of {mla['bound_ms']:.4f} ms ({mla['bound_ms'] / mla['device_ms']:.3f}"
+        f" of it); library (scaled_dot_product_attention) "
+        f"{mla['library_ms']:.4f} ms ({mla['library_device_ms']:.4f}); plain "
+        f"{mla['plain_ms']:.3f} ms; float32 variant {mla['f32_ms']:.4f} ms "
+        f"({mla['f32_device_ms']:.4f}; bound {mla['f32_bound_ms']:.4f}); "
+        f"relative L2 {mla['rel_l2']:.3g} (worst head "
+        f"{mla['rel_l2_per_head']:.3g}), float32 {mla['f32_rel_l2']:.3g}, "
+        f"library {mla['library_rel_l2']:.3g}; mla_decode launches "
+        f"{mla['launches']} ({time.perf_counter() - t0:.1f} s)")
+    log(json.dumps({"mla_decode": mla, "card": smi}))
+
     timed = {
         "ell_edge_map": dict(t, max_abs_err=max(
             e1, e2, t["max_abs_err"], sv["plane"]["max_abs_err"],
@@ -4976,9 +5166,11 @@ def main() -> int:
         "hot_gather": dict(k2["decode"], max_abs_err=max(
             e9, lm["max_abs_err"], k2["decode"]["max_abs_err"],
             k2["zipf"]["max_abs_err"]), at_zipf_8192=k2["zipf"]),
+        "latent_attention": mla,
     }
     # K5 carries the main (ell) path, K2 the LM path, the others the packed one
-    home = {"ell_edge_map": "ell", "hot_gather": "lm_serve"}
+    home = {"ell_edge_map": "ell", "hot_gather": "lm_serve",
+            "latent_attention": "lm_mla"}
     kernels = []
     for kname, (_, source, replaces) in _wrappers().items():
         m = timed[kname]
@@ -4990,7 +5182,8 @@ def main() -> int:
                    "lm_train": tr["launches"][kname],
                    "lm_blocks": blocks_launches[kname],
                    "lm_sharded": sh["launches"].get(kname, 0),
-                   "lm_train_blocks": train_blocks_launches[kname]}
+                   "lm_train_blocks": train_blocks_launches[kname],
+                   "lm_mla": mla["launches"][kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,

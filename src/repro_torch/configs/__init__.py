@@ -2,7 +2,10 @@
 
 A copy of ``repro.configs`` (the configs are data); the port keeps its own so
 that it imports nothing of ``repro``.  The parity tests hold every field of
-every arch equal to the reference's."""
+every arch of ``ARCH_IDS`` equal to the reference's, and the port's own
+options (the published ones the reference lacks) at their defaults.  ``PORT_ARCH_IDS``
+are the port's own presets (published configs the JAX package has no
+reading of); ``get_config`` finds both."""
 from __future__ import annotations
 
 from importlib import import_module
@@ -20,6 +23,12 @@ ARCH_IDS = [
     "deepseek_v2_lite_16b",
     "recurrentgemma_9b",
     "mamba2_780m",
+]
+
+#: Presets of the port alone, with no counterpart in the JAX package: the
+#: published configs.
+PORT_ARCH_IDS = [
+    "deepseek_v2_lite",
 ]
 
 

@@ -65,6 +65,21 @@ class ArchConfig:
 
     sub_quadratic: bool = False  # True → long_500k cell applies
 
+    # Options of a published config that the JAX package's reading lacks;
+    # their defaults are that reading (the parity tests hold every preset of
+    # the JAX package at them).  ``d_ff`` is the dense layers' width,
+    # ``moe_d_ff`` the experts'.
+    first_dense_layers: int = 0  # leading layers whose channel is a dense MLP
+    moe_norm_topk: bool = True  # renormalise the top-k probabilities to sum 1
+    moe_drop_free: bool = False  # expert panels hold every slot: nothing drops
+    mla_latent_norm: bool = False  # RMSNorm on the latent before k_up / v_up
+    yarn_factor: float = 0.0  # YaRN rope scaling factor; 0: plain rope
+    yarn_mscale: float = 0.0
+    yarn_mscale_all_dim: float = 0.0
+    yarn_original_max_pos: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+
     @property
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
@@ -75,6 +90,16 @@ class ArchConfig:
         if self.family == "moe":
             return (("attn", "moe"),)
         return (("attn", "mlp"),)
+
+    def layer_kind(self, i: int) -> Tuple[str, str]:
+        """(mixer, channel) of layer ``i``: the pattern's, with a dense
+        ``mlp`` channel (width ``d_ff``) in the first ``first_dense_layers``
+        layers."""
+        pattern = self.layer_pattern()
+        mixer, channel = pattern[i % len(pattern)]
+        if i < self.first_dense_layers and channel == "moe":
+            channel = "mlp"
+        return mixer, channel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +119,8 @@ SHAPES = {
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """Tiny same-family config for CPU smoke tests."""
+    """Tiny same-family config for CPU smoke tests (the published options
+    kept)."""
     period = max(1, len(cfg.layer_pattern()))
     small = dict(
         n_layers=max(period, 2 * period if cfg.n_layers >= 2 * period else period),

@@ -3,6 +3,16 @@
 MLA kv_lora=512; MoE: 64 routed experts top-6 + 2 shared, expert d_ff=1408.
 (The assignment line lists 64 experts; the paper's full V2 uses 160 — we
 follow the assigned 64-expert lite config.)
+
+This is the JAX package's reading, kept field for field equal to its
+config for the parity tests.  The published model is ``deepseek_v2_lite``,
+which differs from it in six ways: the published model's layer 0 is a
+dense MLP of width 10,944; it RMS-norms the latent before ``k_up`` /
+``v_up``; its rope is YaRN (factor 40, and ``mscale``² in the softmax
+scale); it uses the top-6 probabilities as they are, not renormalised; it
+drops no expert slot, where this one drops by capacity (GShard); and its
+decode attends over each sequence's own rows through the absorbed latent
+cache, where the JAX package re-expands the whole cache every step.
 """
 from .base import ArchConfig
 

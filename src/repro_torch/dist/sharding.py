@@ -193,7 +193,7 @@ def batch_spec(mesh) -> Tuple[Any, ...]:
 def cache_specs(cache: Dict[str, Any], mesh) -> Dict[str, Any]:
     """Decode-cache specs, the structure of ``lm.model.init_cache``'s
     ``cache``: dim 0 (the batch) over the data axes, everything else
-    replicated; ``len`` (a host int) has none.  The reference's
+    replicated; ``len`` (host lengths) has none.  The reference's
     period-stacked leaves carry their batch on dim 1, the port's per-layer
     caches on dim 0.  Its rule reads dim 0 of a ring's ``pos`` plane too
     (the window's slots, no batch), and so does the port's."""
@@ -287,7 +287,8 @@ def shard_model(model: nn.Module, mesh, fsdp_over_pods: bool = False
 def shard_cache(cache: Dict[str, Any], mesh) -> Dict[str, Any]:
     """``lm.model.init_cache``'s cache with every tensor made a DTensor over
     ``mesh`` placed by :func:`cache_specs` (divisibility enforced), in
-    place; ``len`` stays a host int.  Returns the cache."""
+    place; ``len`` (host lengths) and ``len_dev`` stay as they are.
+    Returns the cache."""
     from torch.distributed.tensor import distribute_tensor
 
     specs = cache_specs(cache, mesh)

@@ -289,7 +289,7 @@ def lower_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
                                      max_len=cell.seq_len, device="meta",
                                      dtype=torch.bfloat16)
         shd.shard_cache(cache, mesh)
-        cache["len"] = cell.seq_len - 1  # the last slot: the whole cache
+        model_mod.set_lengths(cache, cell.seq_len - 1)  # the last slot
         argument = _local_bytes((list(model.parameters()), cache, batch))
         with activation_sharding(mesh), counts:
             out = model_mod.decode_step(model, cache, batch["token"])

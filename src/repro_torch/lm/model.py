@@ -27,8 +27,9 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -37,14 +38,15 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..dist.constrain import constrain, is_sharded, reshape
 from ..dist.constrain import positions as dist_positions
+from ..obs import trace as obs_trace
 from . import embed as embed_mod
 from . import layers as L
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 
 __all__ = ["Block", "LM", "decode_step", "forward", "has_linear_cache",
-           "init_cache", "init_params", "loss_fn", "on_mesh",
-           "unembed_apply"]
+           "init_cache", "init_params", "loss_fn", "on_mesh", "set_lengths",
+           "takes_ragged", "unembed_apply"]
 
 #: The encoder-decoder stub's cross-attention memory in the decode cache:
 #: zeros over a fixed S_enc, as the reference allocates it.
@@ -55,9 +57,18 @@ def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
     return L.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
+def _yarn(cfg: ArchConfig) -> Optional[L.Yarn]:
+    if not cfg.yarn_factor:
+        return None
+    return L.Yarn(cfg.yarn_factor, cfg.yarn_mscale, cfg.yarn_mscale_all_dim,
+                  cfg.yarn_original_max_pos, cfg.yarn_beta_fast,
+                  cfg.yarn_beta_slow)
+
+
 def _mla_dims(cfg: ArchConfig) -> L.MlaDims:
     return L.MlaDims(cfg.n_heads, cfg.kv_lora, cfg.mla_d_nope, cfg.mla_d_rope,
-                     cfg.mla_d_v)
+                     cfg.mla_d_v, latent_norm=cfg.mla_latent_norm,
+                     yarn=_yarn(cfg))
 
 
 def _ssd_dims(cfg: ArchConfig) -> ssm_mod.SsdDims:
@@ -72,7 +83,9 @@ def _rglru_dims(cfg: ArchConfig) -> ssm_mod.RglruDims:
 def _moe_dims(cfg: ArchConfig) -> moe_mod.MoeDims:
     return moe_mod.MoeDims(cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
                            cfg.n_experts, cfg.top_k, cfg.n_shared_experts,
-                           capacity_factor=cfg.capacity_factor)
+                           capacity_factor=cfg.capacity_factor,
+                           norm_topk=cfg.moe_norm_topk,
+                           drop_free=cfg.moe_drop_free)
 
 
 def _embed_dims(cfg: ArchConfig) -> embed_mod.EmbedDims:
@@ -156,9 +169,12 @@ class Block(nn.Module):
         return self._channel(cfg, x)
 
     def decode(self, cfg: ArchConfig, x: torch.Tensor, cache: Dict[str, Any],
-               cur_len: int, cross_kv=None) -> torch.Tensor:
+               cur_len: Union[int, L.DecodeAt],
+               cross_kv=None) -> torch.Tensor:
         """One token (the reference's ``_layer_decode``): (B, 1, d_model) →
-        (B, 1, d_model); ``cache`` is this layer's, updated in place."""
+        (B, 1, d_model) at ``cur_len`` (an int for the whole batch, or each
+        sequence's own position); ``cache`` is this layer's, updated in
+        place."""
         dt = x.dtype
         h = L.apply_norm(cfg.norm, self.norm1, x)
         m = self.mixer
@@ -188,11 +204,15 @@ class Block(nn.Module):
 
 def _mha_decode_ring(p, h: torch.Tensor, cfg: ArchConfig,
                      cache: Dict[str, torch.Tensor],
-                     cur_len: int) -> torch.Tensor:
+                     cur_len: Union[int, L.DecodeAt]) -> torch.Tensor:
     """Sliding-window decode against a ring cache of W slots: this token's
     k and v go to slot ``cur_len mod W`` IN PLACE, with its position in
     the ``pos`` plane; a slot is valid while its position lies in
-    ``(cur_len - W, cur_len]``.  Never raises past W: the ring wraps."""
+    ``(cur_len - W, cur_len]``.  Never raises past W: the ring wraps.  The
+    ring's one ``pos`` plane serves the whole batch: every sequence at one
+    position."""
+    if isinstance(cur_len, L.DecodeAt):
+        cur_len = cur_len.position
     dims = _attn_dims(cfg)
     b = h.shape[0]
     w = cache["k"].shape[1]
@@ -235,19 +255,19 @@ def _cross_decode(p, x: torch.Tensor, cfg: ArchConfig, ck: torch.Tensor,
 
 class LM(nn.Module):
     """Embedding (hot/cold split), ``cfg.n_layers`` blocks in the config's
-    pattern, final norm; the encoder stack and ``enc_norm`` of an enc-dec
-    config; ``prefix_proj`` of a VLM config."""
+    pattern (``cfg.layer_kind``: leading dense layers first), final norm;
+    the encoder stack and ``enc_norm`` of an enc-dec config;
+    ``prefix_proj`` of a VLM config."""
 
     def __init__(self, cfg: ArchConfig, *, generator=None, device=None,
                  dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
         kw = dict(generator=generator, device=device, dtype=dtype)
-        pattern = cfg.layer_pattern()
         cross = cfg.n_enc_layers > 0
         self.embed = embed_mod.embed_init(_embed_dims(cfg), **kw)
         self.layers = nn.ModuleList(
-            Block(cfg, *pattern[i % len(pattern)], cross=cross, **kw)
+            Block(cfg, *cfg.layer_kind(i), cross=cross, **kw)
             for i in range(cfg.n_layers))
         if cross:
             self.encoder = nn.ModuleList(Block(cfg, "bidir", "mlp", **kw)
@@ -519,22 +539,44 @@ def _layer_cache(cfg: ArchConfig, mixer: str, b: int, max_len: int, dev,
 
 def init_cache(cfg: ArchConfig, b: int, max_len: int, *, device=None,
                dtype=torch.bfloat16) -> Dict[str, Any]:
-    """``{"layers": [one cache per layer], "len": 0}``, plus
-    ``cross_k``/``cross_v`` zeros over ``CROSS_MEMORY`` positions for an
-    enc-dec config (the reference's decode stub: nothing fills them, so
-    decode's cross attention adds exactly 0).  ``len`` is a host int (no
-    device read per step)."""
+    """``{"layers": [one cache per layer], "len": zeros, "len_dev":
+    zeros}``, plus ``cross_k``/``cross_v`` zeros over ``CROSS_MEMORY``
+    positions for an enc-dec config (the reference's decode stub: nothing
+    fills them, so decode's cross attention adds exactly 0).  ``len`` holds
+    each sequence's length on the host ((B,) int64: no device read per
+    step), ``len_dev`` the same on the device; ``set_lengths`` sets both."""
     dev = resolve_device(device)
-    pattern = cfg.layer_pattern()
     layers: List[Dict[str, torch.Tensor]] = [
-        _layer_cache(cfg, pattern[i % len(pattern)][0], b, max_len, dev,
-                     dtype) for i in range(cfg.n_layers)]
-    cache: Dict[str, Any] = {"layers": layers, "len": 0}
+        _layer_cache(cfg, cfg.layer_kind(i)[0], b, max_len, dev, dtype)
+        for i in range(cfg.n_layers)]
+    cache: Dict[str, Any] = {
+        "layers": layers, "len": np.zeros(b, dtype=np.int64),
+        "len_dev": torch.zeros(b, dtype=torch.int64, device=dev)}
     if cfg.n_enc_layers:
         shape = (b, CROSS_MEMORY, cfg.n_kv_heads, cfg.head_dim)
         cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
     return cache
+
+
+def set_lengths(cache: Dict[str, Any], lens: Union[int, Sequence[int]]):
+    """Set every sequence's length (an int for all, or (B,) ints): the
+    position its next token is written at, the rows below it its history.
+    The host lengths, and one copy to the device."""
+    b = cache["len"].shape[0]
+    host = np.array(np.broadcast_to(np.asarray(lens, dtype=np.int64), (b,)))
+    cache["len"] = host
+    cache["len_dev"].copy_(torch.from_numpy(host))
+    return cache
+
+
+def takes_ragged(cfg: ArchConfig) -> bool:
+    """Whether every layer's cache can hold sequences of different lengths:
+    a linear cache (``attn``, ``mla``) can, a ring (``local``, one position
+    plane for the batch) or a recurrent state (``ssd``, ``rglru``, no
+    positions at all) cannot."""
+    return all(cfg.layer_kind(i)[0] in ("attn", "mla")
+               for i in range(cfg.n_layers))
 
 
 def has_linear_cache(cfg: ArchConfig) -> bool:
@@ -546,17 +588,30 @@ def has_linear_cache(cfg: ArchConfig) -> bool:
 
 @torch.no_grad()
 @_on_mesh
-def decode_step(model: LM, cache: Dict[str, Any], token: torch.Tensor):
-    """One new token for every sequence; token: (B, 1) integer.  Returns
-    (logits (B, 1, padded V), cache) — the cache's tensors are updated in
-    place and its ``len`` advanced."""
+def decode_step(model: LM, cache: Dict[str, Any], token: torch.Tensor,
+                fixed: bool = False):
+    """One new token for every sequence; token: (B, 1) integer.  Each
+    sequence's token goes to its own position, its length (``cache["len"]``):
+    rope, cache writes and masks are per sequence.  Returns (logits (B, 1,
+    padded V), cache) — the cache's tensors are updated in place and every
+    length advanced by one.  A batch of different lengths raises on a model
+    whose caches cannot hold it (``takes_ragged``), as does a ``fixed`` step
+    (``L.DecodeAt``: the step a CUDA graph records).  In an
+    ``lm.decode_step`` span."""
     cfg = model.cfg
-    cur_len = cache["len"]
-    x = embed_mod.embed_lookup(model.embed, token)
-    cross_kv = ((cache["cross_k"], cache["cross_v"]) if cfg.n_enc_layers
-                else None)
-    for block, layer_cache in zip(model.layers, cache["layers"]):
-        x = block.decode(cfg, x, layer_cache, cur_len, cross_kv)
-    cache["len"] = cur_len + 1
-    x = L.apply_norm(cfg.norm, model.final_norm, x)
-    return embed_mod.unembed(model.embed, x), cache
+    at = L.DecodeAt(cache["len"], cache["len_dev"], fixed=fixed)
+    if not at.uniform and not takes_ragged(cfg):
+        raise ValueError(f"{cfg.arch_id}: its ring or recurrent caches hold "
+                         "one position for the batch; its sequences have "
+                         f"lengths {at.lens.min()} to {at.lens.max()}")
+    with obs_trace.span("lm.decode_step"):
+        x = embed_mod.embed_lookup(model.embed, token)
+        cross_kv = ((cache["cross_k"], cache["cross_v"]) if cfg.n_enc_layers
+                    else None)
+        for block, layer_cache in zip(model.layers, cache["layers"]):
+            x = block.decode(cfg, x, layer_cache, at, cross_kv)
+        x = L.apply_norm(cfg.norm, model.final_norm, x)
+        logits = embed_mod.unembed(model.embed, x)
+    cache["len"] = at.lens + 1
+    cache["len_dev"].add_(1)
+    return logits, cache

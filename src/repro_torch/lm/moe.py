@@ -5,7 +5,10 @@ the reference bins the DBG way rather than by Sort: each (token, choice)
 slot's rank within its expert is the count of earlier same-expert slots (an
 exclusive cumsum over the one-hot expert matrix), so token order is kept
 inside every expert's panel.  Static, capacity-bounded shapes (GShard-style
-dropping), computed from the input's shape alone.
+dropping), computed from the input's shape alone; or, for a published model
+that drops nothing (``drop_free``), panels of one row per token, which hold
+every slot.  The top-k probabilities are renormalised to sum 1, or taken as
+they are (``norm_topk`` false: DeepSeek-V2's ``norm_topk_prob``).
 
 The port keeps the reference's arithmetic with three choices of its own:
 - the top-k is a stable descending sort's first K, so equal probabilities
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..dist.constrain import constrain
+from ..obs import trace as obs_trace
 from .embed import _normal
 
 __all__ = ["MoeDims", "capacity", "moe_apply", "moe_apply_ref", "moe_init",
@@ -46,6 +50,8 @@ class MoeDims:
     n_shared: int = 0
     shared_d_ff: int = 0  # defaults to n_shared * d_ff
     capacity_factor: float = 1.25
+    norm_topk: bool = True  # renormalise the top-k probabilities to sum 1
+    drop_free: bool = False  # panels hold every slot: nothing drops
 
 
 def moe_init(dims: MoeDims, *, generator=None, device=None,
@@ -75,20 +81,29 @@ def moe_init(dims: MoeDims, *, generator=None, device=None,
 
 def capacity(t: int, dims: MoeDims) -> int:
     """Rows per expert panel for ``t`` tokens: ``ceil(t·K·cf / E)`` rounded
-    up to a multiple of 8, at least 8 (from the static shape only)."""
-    c = int(math.ceil(t * dims.top_k * dims.capacity_factor / dims.n_experts))
+    up to a multiple of 8, at least 8 (from the static shape only); with
+    ``drop_free``, ``t`` so rounded (a token sends an expert one slot at
+    most, so no slot drops)."""
+    if dims.drop_free:
+        c = t
+    else:
+        c = int(math.ceil(t * dims.top_k * dims.capacity_factor
+                          / dims.n_experts))
     return max(8, -(-c // 8) * 8)
 
 
 def route(params, xt: torch.Tensor, dims: MoeDims):
     """Router of ``xt`` (T, d): the float32 softmax ``probs`` (T, E), the top-K
     experts ``top_e`` (T, K) int64 in descending probability (ties: lower
-    expert first) and their probabilities ``top_p`` renormalized to sum 1."""
-    logits = xt @ params["router"]["w"]
-    probs = torch.softmax(logits.float(), dim=-1)
+    expert first) and their probabilities ``top_p``, renormalized to sum 1
+    unless ``dims.norm_topk`` is false.  The logits in float32 whatever the
+    weights' dtype, as DeepSeek-V2's gate computes them."""
+    logits = xt.float() @ params["router"]["w"].float()
+    probs = torch.softmax(logits, dim=-1)
     srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = srt[:, :dims.top_k], idx[:, :dims.top_k]
-    top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    if dims.norm_topk:
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
     return probs, top_e, top_p
 
 
@@ -118,7 +133,12 @@ def moe_apply(params, x: torch.Tensor, dims: MoeDims):
     """x: (B, S, d) → (out (B, S, d), aux): the routed top-K experts through
     capacity-bounded panels, plus the shared experts; ``aux`` is the
     Switch load-balance loss ``E · Σ_e f_e · p_e`` over the first
-    choices."""
+    choices.  In an ``lm.moe`` span."""
+    with obs_trace.span("lm.moe"):
+        return _moe_apply(params, x, dims)
+
+
+def _moe_apply(params, x: torch.Tensor, dims: MoeDims):
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)

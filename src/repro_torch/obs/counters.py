@@ -54,6 +54,9 @@ Always on, whatever the hook and the tracer, the graph path's own counts
     K5's grouped entry maps, and the tile classes it covers
     (``edge_map.grouped.calls``, ``edge_map.grouped.classes``).
 
+The LM's decode path counts in the registry too: ``lm.mla_decode.cache_rows``
+and ``lm.mla_decode.launches`` (``lm.layers.mla_decode``).
+
 Sharded passes (``repro_torch.dist``) count under ``sharded_flat`` /
 ``sharded_ell``, their edges from the layout's host degree vectors (base +
 delta − tombstones) and their bytes through

@@ -1513,3 +1513,232 @@ def test_sharded_lm_step_on_one_nccl_rank_matches_the_unsharded_step(
             assert float(diff) <= 1e-4, n
     finally:
         tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- MLA decode
+def _latent_inputs(dev, lens, heads=16, s_max=None, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    b = len(lens)
+    s_max = s_max or max(lens)
+    bf = torch.bfloat16
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    # q as a column slice of a wider tensor: strided rows, last dim unit
+    q = draw(b, heads, 512 + 64 + 8)
+    return (q[..., :512], q[..., 512:576], draw(b, s_max, 512),
+            draw(b, s_max, 64), torch.tensor(lens, device=dev))
+
+
+def _rel_l2_rows(got, want):
+    """|got - want| / |want| per (sequence, head)."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+@pytest.mark.parametrize("heads", [16, 5])
+def test_mla_decode_kernel_matches_the_plain_path_at_ragged_lengths(cuda,
+                                                                     heads):
+    """Rows 1, 63, 64, 4,097 and 32,768 in one call over a bf16 cache whose
+    rows past each length hold NaN (never read): the kernel against the
+    plain path in float32 on the same bf16 inputs.  The kernel rounds the
+    probabilities and its output to bf16: within 1e-2 relative L2 per head
+    (the measured need is ~3e-3), and one row reads back exactly."""
+    from repro_torch.kernels.mla_decode import (latent_attention,
+                                                latent_attention_ref)
+
+    lens = [1, 63, 64, 4097, 32768]
+    ql, qr, lat, kr, rows = _latent_inputs(cuda, lens, heads)
+    for i, n in enumerate(lens):
+        lat[i, n:], kr[i, n:] = float("nan"), float("nan")
+    scale = 192 ** -0.5 * 1.5894
+    before = latent_attention.launches
+    got = latent_attention(ql, qr, lat, kr, rows, scale, max(lens),
+                           sum(lens))
+    torch.cuda.synchronize()
+    assert latent_attention.launches == before + 1
+    assert got.shape == (5, heads, 512) and got.dtype == torch.bfloat16
+    want = latent_attention_ref(ql, qr, lat, kr, rows, scale, max(lens))
+    assert torch.isfinite(got).all()
+    assert _rel_l2_rows(got, want) < 1e-2
+    assert torch.equal(got[0], lat[0, 0].expand(heads, 512))
+    again = latent_attention(ql, qr, lat, kr, rows, scale, max(lens),
+                             sum(lens))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("latent,rope,heads", [(512, 64, 16), (64, 16, 4)])
+def test_mla_decode_float32_kernel_matches_the_plain_path(cuda, latent, rope,
+                                                          heads):
+    """The float32 variant at DeepSeek-V2's widths and at the reduced
+    configs' (a latent of 64, a rope key of 16, 4 heads), rows 1, 63, 64,
+    4,097 and 32,768 with NaN past each length: within 1e-5 relative L2
+    per head of the plain path (fp32 throughout, the sums in another
+    order), one row read back exactly, two calls bitwise equal."""
+    from repro_torch.kernels.mla_decode import (latent_attention,
+                                                latent_attention_ref)
+
+    lens = [1, 63, 64, 4097, 32768]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    b, s_max = len(lens), max(lens)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    q = draw(b, heads, latent + rope + 4)
+    ql, qr = q[..., :latent], q[..., latent:latent + rope]
+    lat, kr = draw(b, s_max, latent), draw(b, s_max, rope)
+    for i, n in enumerate(lens):
+        lat[i, n:], kr[i, n:] = float("nan"), float("nan")
+    rows = torch.tensor(lens, device=cuda)
+    scale = (128 + rope) ** -0.5
+    before = latent_attention.launches
+    got = latent_attention(ql, qr, lat, kr, rows, scale, s_max, sum(lens))
+    torch.cuda.synchronize()
+    assert latent_attention.launches == before + 1
+    assert got.shape == (b, heads, latent) and got.dtype == torch.float32
+    want = latent_attention_ref(ql, qr, lat, kr, rows, scale, s_max)
+    assert torch.isfinite(got).all()
+    assert _rel_l2_rows(got, want) < 1e-5
+    assert torch.equal(got[0], lat[0, 0].expand(heads, latent))
+    assert torch.equal(got, latent_attention(ql, qr, lat, kr, rows, scale,
+                                             s_max, sum(lens)))
+
+
+def test_mla_decode_kernel_raises_on_what_it_does_not_take(cuda):
+    from repro_torch.kernels.mla_decode import latent_attention
+
+    ql, qr, lat, kr, rows = _latent_inputs(cuda, [3, 5])
+    with pytest.raises(TypeError, match="bfloat16"):
+        latent_attention(ql.float(), qr, lat, kr, rows, 0.1, 5, 8)
+    with pytest.raises(ValueError, match="1 to 16 heads"):
+        q17 = torch.zeros((2, 17, 512), dtype=torch.bfloat16, device=cuda)
+        latent_attention(q17, torch.zeros((2, 17, 64), dtype=torch.bfloat16,
+                                          device=cuda), lat, kr, rows, 0.1,
+                         5, 8)
+    with pytest.raises(ValueError, match="max_rows"):
+        latent_attention(ql, qr, lat, kr, rows, 0.1, 6, 8)
+
+
+def test_mla_decode_on_the_card_counts_its_launches(cuda):
+    """``lm.layers.mla_decode`` over a bf16 cache on the card: one kernel
+    call per layer call (``lm.mla_decode.launches``), the rows read from
+    the host lengths (``lm.mla_decode.cache_rows``), and the output equal
+    to the plain path's run on the CPU within the bf16 band."""
+    from repro_torch.lm import layers
+    from repro_torch.obs import metrics
+
+    metrics.reset_registry()
+    dims = layers.MlaDims(16, 512, latent_norm=True,
+                          yarn=layers.Yarn(40.0, 0.707, 0.707, 4096))
+    p = layers.mla_init(2048, dims, generator=torch.Generator().manual_seed(0),
+                        device=None, dtype=torch.float32)
+    lens = np.array([5, 700, 4096])
+    b, s_max = 3, 4200
+    g = torch.Generator().manual_seed(1)
+    lat = torch.randn(b, s_max, 512, generator=g).to(torch.bfloat16)
+    kr = torch.randn(b, s_max, 64, generator=g).to(torch.bfloat16)
+    x = torch.randn(b, 1, 2048, generator=g).to(torch.bfloat16)
+    pb = {k: {"w": v["w"].to(torch.bfloat16)} if "w" in v else
+          {"scale": v["scale"].to(torch.bfloat16)} for k, v in p.items()}
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        at = layers.DecodeAt(lens, torch.from_numpy(lens).to(dev))
+        pd = {k: {n: t.to(dev) for n, t in v.items()} for k, v in pb.items()}
+        with torch.no_grad():
+            outs.append(layers.mla_decode(pd, x.to(dev), dims, lat.to(dev),
+                                          kr.to(dev), at).float().cpu())
+    reg = metrics.get_registry()
+    assert reg.get("lm.mla_decode.launches").value == 1
+    assert reg.get("lm.mla_decode.cache_rows").value == 2 * int(
+        (lens + 1).sum())
+    assert _rel_l2_rows(outs[1], outs[0]) < 2e-2
+    metrics.reset_registry()
+
+
+def test_mla_decode_over_a_float32_cache_launches_the_kernel(cuda):
+    """The float32 models' decode on the card: ``lm.layers.mla_decode``
+    over a float32 cache is one call of the kernel's float32 variant per
+    layer call, within 1e-5 relative L2 of the plain path on the CPU."""
+    from repro_torch.lm import layers
+    from repro_torch.obs import metrics
+
+    metrics.reset_registry()
+    dims = layers.MlaDims(16, 512, latent_norm=True,
+                          yarn=layers.Yarn(40.0, 0.707, 0.707, 4096))
+    p = layers.mla_init(2048, dims, generator=torch.Generator().manual_seed(0),
+                        device=None, dtype=torch.float32)
+    lens = np.array([5, 700, 4096])
+    g = torch.Generator().manual_seed(1)
+    lat = torch.randn(3, 4200, 512, generator=g)
+    kr = torch.randn(3, 4200, 64, generator=g)
+    x = torch.randn(3, 1, 2048, generator=g)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        at = layers.DecodeAt(lens, torch.from_numpy(lens).to(dev))
+        pd = {k: {n: t.to(dev) for n, t in v.items()} for k, v in p.items()}
+        with torch.no_grad():
+            outs.append(layers.mla_decode(pd, x.to(dev), dims, lat.to(dev),
+                                          kr.to(dev), at).cpu())
+    assert metrics.get_registry().get("lm.mla_decode.launches").value == 1
+    assert _rel_l2_rows(outs[1], outs[0]) < 1e-5
+    metrics.reset_registry()
+
+
+def test_decode_graph_replays_the_eager_step_at_changing_lengths(cuda):
+    """``serve.DecodeGraph`` on the card: one recording, replayed over
+    ragged lengths that move (every step, and back at a new turn), gives
+    the eager ``decode_step``'s logits and rows within 1e-5 relative L2
+    (the float32 kernel; its grid spans the room, so its slices differ),
+    advances the lengths on the host and the device, and counts each
+    replay's rows and launches as the eager step does."""
+    from repro_torch import configs
+    from repro_torch.lm import model, serve
+    from repro_torch.obs import metrics
+
+    cfg = configs.reduced(configs.get_config("deepseek_v2_lite"))
+    m = model.LM(cfg, generator=torch.Generator().manual_seed(0)).to(cuda)
+    lens = [3, 17, 9, 30]
+    g = torch.Generator().manual_seed(2)
+    caches = []
+    for _ in range(2):
+        cache = model.init_cache(cfg, 4, 40, device=cuda, dtype=torch.float32)
+        g.manual_seed(2)
+        for layer in cache["layers"]:
+            for t in layer.values():
+                t.copy_(torch.randn(t.shape, generator=g))
+        model.set_lengths(cache, lens)
+        caches.append(cache)
+    eager, graphed = caches
+    step = serve.DecodeGraph(m, graphed)
+    assert step.graph is not None
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 6))).to(torch.int32).to(cuda)
+    metrics.reset_registry()
+    reg = metrics.get_registry()
+    for t in range(6):
+        if t == 3:
+            for c in caches:
+                model.set_lengths(c, [n + 2 for n in lens])
+        tok = toks[:, t:t + 1]
+        rows = int((eager["len"] + 1).sum()) * cfg.n_layers
+        want = model.decode_step(m, eager, tok)[0].float()
+        before = (reg.get("lm.mla_decode.cache_rows").value,
+                  reg.get("lm.mla_decode.launches").value)
+        got = step(tok)[0].float()
+        assert (reg.get("lm.mla_decode.cache_rows").value - before[0]
+                == rows)
+        assert (reg.get("lm.mla_decode.launches").value - before[1]
+                == cfg.n_layers)
+        assert ((got - want).norm() / want.norm()).item() < 1e-5
+    assert list(graphed["len"]) == list(eager["len"])
+    assert graphed["len_dev"].tolist() == list(eager["len"])
+    for a, b in zip(graphed["layers"], eager["layers"]):
+        for k in a:
+            n = int(eager["len"].max())
+            assert ((a[k][:, :n] - b[k][:, :n]).norm()
+                    / b[k][:, :n].norm()).item() < 1e-5
+    metrics.reset_registry()

@@ -198,9 +198,26 @@ def test_load_all_builds_every_kernel_source_in_one_call(monkeypatch):
     kernels.load_all()
     assert [src.name for src, _ in seen] == [
         "edge_map.cu", "pack_spmv.cu", "csr_spmv.cu", "hist_bin.cu",
-        "gather_embed.cu"]
+        "gather_embed.cu", "mla_decode.cu"]
     assert all(src.exists() for src, _ in seen)
     assert bound == list(kernels.KERNEL_MODULES)
+
+
+def test_load_all_builds_the_kernels_it_is_named(monkeypatch):
+    """The LM decode path's two libraries alone, in one ``load_many``."""
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+
+    calls = []
+    monkeypatch.setattr(_build, "load_many", lambda jobs: calls.append(
+        [src.name for src, _ in jobs]) or [{n: None for n in v}
+                                           for _, v in jobs])
+    names = ("gather_embed.gather_embed", "mla_decode.mla_decode")
+    for name in names:
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        monkeypatch.setattr(mod, "_bind", lambda libs: None)
+    kernels.load_all(names)
+    assert calls == [["gather_embed.cu", "mla_decode.cu"]]
 
 
 def test_the_source_scan_covers_the_lm_block_kinds():
